@@ -1,0 +1,137 @@
+"""Image encode CLI of the port: overfit, then quantize the networks.
+
+Usage:
+    python -m coolchic_tpu_torch.encode --input img.png --lmbda 1e-3 \\
+        --enc_preset c3x --n_itr 10000 --dec_cfg cfg/dec/hop.yaml \\
+        --workdir out/ [--device cuda]
+
+Writes ``results_best.tsv`` (the JAX encoder's columns, then
+``rate_nn_bpp``) and ``params_quantized.npz`` (the quantized parameters in
+the JAX layout, keys like ``arm/layers/0/weight``, plus ``q_step/<module>/
+<weight|bias>`` and ``expgol/<module>/<weight|bias>``) into the workdir.
+The port has no bitstream writer or decoded-PSNR check yet: until then
+``rate_bpp`` and ``psnr_db`` are nan and ``--output`` raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+
+def _build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="coolchic_tpu_torch image encoder")
+    p.add_argument("--input", type=Path, required=True, help=".png or .ppm image")
+    p.add_argument("--output", type=Path, default=None, help="bitstream (not written yet)")
+    p.add_argument("--workdir", type=Path, default=None)
+    p.add_argument("--lmbda", type=float, default=1e-3)
+    p.add_argument("--enc_preset", type=str, default="c3x", choices=["c3x", "debug"])
+    p.add_argument("--n_itr", type=int, default=None, help="max_itr of the first phase")
+    p.add_argument("--n_train_loops", type=int, default=1)
+    p.add_argument("--dec_cfg", type=Path, default=None, help="DecoderConfig YAML")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+@dataclass
+class EncodeRun:
+    row: Dict[str, object]  # the results_best.tsv row
+    result: object  # train.encode.EncodeResult of the best loop
+    infos: Optional[Dict]  # per-module ModuleQuantInfo
+
+
+def save_quantized_params(path: Path, params: Dict, infos: Optional[Dict]) -> None:
+    from coolchic_tpu_torch.params import flatten_with_paths, to_numpy_pytree
+
+    arrays = flatten_with_paths(to_numpy_pytree(params))
+    for module, info in (infos or {}).items():
+        arrays[f"q_step/{module}/weight"] = np.float32(info.q_step_w)
+        arrays[f"q_step/{module}/bias"] = np.float32(info.q_step_b)
+        arrays[f"expgol/{module}/weight"] = np.int32(info.expgol_w)
+        arrays[f"expgol/{module}/bias"] = np.int32(info.expgol_b)
+    np.savez(path, **arrays)
+
+
+def encode_one_run(run_cfg, seed: int = 0, device: str | torch.device = "cuda") -> EncodeRun:
+    """Encode one (image, lmbda, decoder config) run on ``device``."""
+    from coolchic_tpu_torch.io.image import load_frame_data_from_file
+    from coolchic_tpu_torch.train.encode import encode_frame_with_quant_info
+    from coolchic_tpu_torch.utils.types import resolve_device
+
+    device = resolve_device(device)
+    fd = load_frame_data_from_file(str(run_cfg.input))
+    cfg = run_cfg.dec_cfg.to_coolchic_config(fd.img_size)
+    preset = run_cfg.enc_cfg.recipe
+    target = torch.tensor(fd.data, device=device)
+
+    best = None
+    t0 = time.perf_counter()
+    for loop in range(run_cfg.enc_cfg.n_train_loops):
+        result, infos = encode_frame_with_quant_info(
+            target, run_cfg.lmbda, cfg, preset, seed=seed + loop
+        )
+        if best is None or result.loss < best[0].loss:
+            best = (result, infos)
+    elapsed = time.perf_counter() - t0
+    result, infos = best
+
+    rate_nn_bits = sum(i.rate_bits for i in infos.values()) if infos else 0.0
+    row = {
+        "seq_name": Path(run_cfg.input).stem,
+        "lmbda": run_cfg.lmbda,
+        "rate_bpp": float("nan"),  # no bitstream writer yet
+        "n_pixels": cfg.n_pixels,
+        "psnr_db": float("nan"),  # no decoded-bitstream PSNR yet
+        "psnr_db_estimate": result.psnr_db,
+        "rate_latent_bpp": result.rate_latent_bpp,
+        "loss": result.loss,
+        "encoding_time_sec": elapsed,
+        "rate_nn_bpp": rate_nn_bits / cfg.n_pixels,
+    }
+    if run_cfg.workdir:
+        workdir = Path(run_cfg.workdir)
+        workdir.mkdir(parents=True, exist_ok=True)
+        with open(workdir / "results_best.tsv", "w") as f:
+            f.write("\t".join(row.keys()) + "\n")
+            f.write("\t".join(str(v) for v in row.values()) + "\n")
+        save_quantized_params(workdir / "params_quantized.npz", result.params, infos)
+    return EncodeRun(row, result, infos)
+
+
+def main(argv=None) -> int:
+    args = _build_argparser().parse_args(argv)
+    if args.output is not None:
+        raise NotImplementedError(
+            "--output: the PyTorch port has no bitstream writer yet; "
+            "use --workdir for the quantized parameters"
+        )
+    from coolchic_tpu_torch.utils.types import DecoderConfig, EncoderConfig, RunConfig
+
+    run_cfg = RunConfig(
+        input=args.input,
+        lmbda=args.lmbda,
+        workdir=args.workdir,
+        enc_cfg=EncoderConfig(
+            std_recipe_name=args.enc_preset, n_itr=args.n_itr, n_train_loops=args.n_train_loops
+        ),
+        dec_cfg=DecoderConfig.from_yaml(args.dec_cfg) if args.dec_cfg else DecoderConfig(),
+    )
+    row = encode_one_run(run_cfg, args.seed, args.device).row
+    print(
+        f"{row['seq_name']}: lmbda={row['lmbda']:.1e} "
+        f"psnr_estimate={row['psnr_db_estimate']:.3f} dB "
+        f"rate_latent={row['rate_latent_bpp']:.4f} bpp ({row['encoding_time_sec']:.1f} s)"
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,146 @@
+"""The Cool-chic frame decoder as a function of a parameter dict.
+
+Counterpart of ``coolchic_tpu/models/coolchic.py`` for I frames: quantize
+the gained latents, measure their rate with the ARM, upsample, synthesize.
+In eval mode the rate comes from ``ops.arm_rate.arm_rate_pyramid``, which
+launches the CUDA kernel on a CUDA tensor (and runs the plain ARM on a CPU
+tensor); ``mu`` and ``log_scale`` are then None. In training mode the plain
+ARM of ``models/arm.py`` runs, since the backward needs it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from coolchic_tpu_torch.models.arm import arm_rate_plain, init_arm_params
+from coolchic_tpu_torch.models.config import CoolChicConfig
+from coolchic_tpu_torch.models.quantizer import quantize
+from coolchic_tpu_torch.models.synthesis import init_synthesis_params, synthesis_apply
+from coolchic_tpu_torch.models.upsampling import init_upsampling_params, upsampling_apply
+from coolchic_tpu_torch.ops.arm_rate import arm_rate_pyramid
+
+Params = Dict[str, Any]
+
+
+def init_coolchic_params(
+    generator: torch.Generator, cfg: CoolChicConfig, device, latent_init: str = "zeros"
+) -> Params:
+    """Parameters of one frame. Latents start at zero, or at 1e-2 * N(0, 1)
+    with ``latent_init="normal"``."""
+    latents: List[torch.Tensor] = []
+    for shape in cfg.latent_shapes:
+        if latent_init == "zeros":
+            latents.append(torch.zeros(shape, device=device))
+        else:
+            latents.append(1e-2 * torch.randn(shape, generator=generator, device=device))
+    return {
+        "latents": latents,
+        "arm": init_arm_params(generator, cfg.dim_arm, cfg.n_hidden_layers_arm, device),
+        "upsampling": init_upsampling_params(
+            cfg.ups_k_size,
+            cfg.ups_preconcat_k_size,
+            n_ups_kernel=cfg.latent_n_grids - 1,
+            n_ups_preconcat_kernel=cfg.latent_n_grids - 1,
+            device=device,
+        ),
+        "synthesis": init_synthesis_params(
+            generator, cfg.total_latent_channels, cfg.parsed_synthesis_layers(), device
+        ),
+    }
+
+
+def coolchic_forward(
+    params: Params,
+    cfg: CoolChicConfig,
+    quantizer_noise_type: str = "kumaraswamy",
+    quantizer_type: str = "softround",
+    soft_round_temperature: float = 0.3,
+    noise_parameter: float = 1.0,
+    ac_max_val: int = -1,
+    training: bool = True,
+    noise: Optional[Sequence[torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
+    """Cool-chic forward pass.
+
+    Args:
+        params: parameter dict (see the package docstring).
+        cfg: static architecture.
+        ac_max_val: if != -1, clamp y_hat to [-ac_max_val, ac_max_val + 1].
+        training: False selects hardround with no noise and the ARM kernel.
+        noise: optional raw noise draw per grid (see ``quantize``); else the
+            noise is drawn with ``generator``.
+
+    Returns:
+        (raw_out [C_out, H, W], rate_bits [n_latents], extras) with extras
+        ``mu`` / ``log_scale`` (None in eval mode) and ``flat_latent``.
+    """
+    noise_type = quantizer_noise_type if training else "none"
+    q_type = quantizer_type if training else "hardround"
+
+    y_hat: List[torch.Tensor] = []
+    for level, latent in enumerate(params["latents"]):
+        q = quantize(
+            latent * cfg.encoder_gain,
+            noise_type,
+            q_type,
+            soft_round_temperature,
+            noise_parameter,
+            noise=None if noise is None else noise[level],
+            generator=generator,
+        )
+        if ac_max_val != -1:
+            q = torch.clamp(q, -ac_max_val, ac_max_val + 1)
+        if level in cfg.frozen_zero_grids:
+            q = q * 0.0
+        y_hat.append(q)
+
+    flat_latent = torch.cat([y.reshape(-1) for y in y_hat])
+    if training:
+        rate, mu, log_scale = arm_rate_plain(y_hat, params["arm"], cfg.dim_arm)
+    else:
+        rate = arm_rate_pyramid(y_hat, params["arm"], cfg.dim_arm, cfg.n_hidden_layers_arm)
+        mu = log_scale = None
+
+    dense = upsampling_apply(
+        params["upsampling"], y_hat, cfg.ups_k_size, cfg.ups_preconcat_k_size
+    )
+    raw_out = synthesis_apply(params["synthesis"], dense, cfg.parsed_synthesis_layers())
+    extras = {"mu": mu, "log_scale": log_scale, "flat_latent": flat_latent}
+    return raw_out, rate, extras
+
+
+def frame_forward(
+    params: Params,
+    cfg: CoolChicConfig,
+    quantizer_noise_type: str = "kumaraswamy",
+    quantizer_type: str = "softround",
+    soft_round_temperature: float = 0.3,
+    noise_parameter: float = 1.0,
+    ac_max_val: int = -1,
+    training: bool = True,
+    bitdepth: int = 8,
+    noise: Optional[Sequence[torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
+    """I-frame forward: ``coolchic_forward``, then in eval mode the
+    round-trip to ``2^bitdepth - 1`` integer levels, then a clamp to [0, 1]."""
+    raw_out, rate, extras = coolchic_forward(
+        params,
+        cfg,
+        quantizer_noise_type=quantizer_noise_type,
+        quantizer_type=quantizer_type,
+        soft_round_temperature=soft_round_temperature,
+        noise_parameter=noise_parameter,
+        ac_max_val=ac_max_val,
+        training=training,
+        noise=noise,
+        generator=generator,
+    )
+    decoded = raw_out
+    if not training:
+        max_dynamic = 2.0**bitdepth - 1.0
+        decoded = torch.round(decoded * max_dynamic) / max_dynamic
+    return torch.clamp(decoded, 0.0, 1.0), rate, extras

@@ -1,0 +1,57 @@
+"""Synthesis transform: a small stack of 2-D convolutions.
+
+Counterpart of ``coolchic_tpu/models/synthesis.py``. Each layer:
+replicate-pad, convolve, optional residual add, then optional ReLU.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+SynParams = Dict[str, List[Dict[str, torch.Tensor]]]
+
+
+def init_synthesis_params(
+    generator: torch.Generator,
+    input_ft: int,
+    parsed_layers: Sequence[Tuple[int, int, bool, bool]],
+    device,
+) -> SynParams:
+    """Zero biases; residual layers start at zero; linear layers are
+    U(-sqrt(k), sqrt(k)) / out_ft^2 with k = 1 / (C_in * kernel_size^2)."""
+    layers = []
+    in_ft = input_ft
+    for out_ft, k_size, residual, _relu in parsed_layers:
+        shape = (out_ft, in_ft, k_size, k_size)
+        if residual:
+            weight = torch.zeros(shape, device=device)
+        else:
+            sqrt_k = math.sqrt(1.0 / (in_ft * k_size * k_size))
+            u = torch.rand(shape, generator=generator, device=device)
+            weight = (u - 0.5) * 2.0 * sqrt_k / out_ft**2
+        layers.append({"weight": weight, "bias": torch.zeros(out_ft, device=device)})
+        in_ft = out_ft
+    return {"layers": layers}
+
+
+def synthesis_apply(
+    params: SynParams,
+    x: torch.Tensor,
+    parsed_layers: Sequence[Tuple[int, int, bool, bool]],
+) -> torch.Tensor:
+    """[C_in, H, W] dense latent -> [C_out, H, W] image."""
+    y = x[None]
+    for layer, (_out_ft, k_size, residual, relu) in zip(params["layers"], parsed_layers):
+        pad = (k_size - 1) // 2
+        inp = F.pad(y, (pad, pad, pad, pad), mode="replicate") if pad else y
+        out = F.conv2d(inp, layer["weight"], layer["bias"])
+        if residual:
+            out = out + y
+        if relu:
+            out = torch.relu(out)
+        y = out
+    return y[0]

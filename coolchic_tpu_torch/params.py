@@ -1,0 +1,70 @@
+"""Parameter trees between numpy and torch, in the JAX package's layout.
+
+A frame's parameters are nested dicts and lists of arrays (see the package
+docstring). These two functions move such a tree across the framework
+boundary without changing its structure or its bits: tests feed the JAX
+package's weights to the port this way, and the bitstream writer will take
+the port's weights back as numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def from_numpy_pytree(tree: Any, device: torch.device | str) -> Any:
+    """Copy every array leaf of ``tree`` into a tensor on ``device``."""
+    if isinstance(tree, dict):
+        return {k: from_numpy_pytree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_numpy_pytree(v, device) for v in tree)
+    return torch.tensor(np.asarray(tree), device=device)
+
+
+def to_numpy_pytree(tree: Any) -> Any:
+    """Copy every tensor leaf of ``tree`` into a numpy array."""
+    if isinstance(tree, dict):
+        return {k: to_numpy_pytree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy_pytree(v) for v in tree)
+    return tree.detach().cpu().numpy()
+
+
+def tree_leaves(tree: Any) -> list:
+    """Tensor leaves in a fixed order (dict insertion order, then list order)."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """Apply ``fn`` to every leaf of ``tree``, keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_clone(tree: Any) -> Any:
+    """Detached copies of every leaf (a snapshot that no later update touches)."""
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def flatten_with_paths(tree: Any, prefix: str = "") -> dict:
+    """{"arm/layers/0/weight": leaf, ...}: the layout used for ``.npz`` files."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten_with_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out

@@ -1,0 +1,112 @@
+"""Encoding presets: training phases and warm-up, read from ``preset_cfg/``.
+
+Counterpart of ``coolchic_tpu/train/presets.py`` and of the recipe part of
+``coolchic_tpu/utils/types.py``. The YAML files of ``preset_cfg/`` are the
+data; these frozen dataclasses are what the phase engine takes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, fields, replace
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+PRESET_CFG_DIR = Path(__file__).resolve().parents[2] / "preset_cfg"
+PRESET_NAMES = ("c3x", "debug")
+
+
+@dataclass(frozen=True)
+class TrainerPhase:
+    """One training phase."""
+
+    lr: float = 1e-2
+    max_itr: int = 5000
+    freq_valid: int = 100
+    patience: int = 10000
+    quantize_model: bool = False
+    schedule_lr: bool = False
+    end_lr: float = 1e-5
+    softround_temperature: Tuple[float, float] = (0.3, 0.3)
+    noise_parameter: Tuple[float, float] = (1.0, 1.0)
+    quantizer_noise_type: str = "kumaraswamy"
+    quantizer_type: str = "softround"
+    # "all" or any subset of ("arm", "upsampling", "synthesis", "latents")
+    optimized_module: Tuple[str, ...] = ("all",)
+
+    def __post_init__(self):
+        noise_free = ("softround_alone", "hardround", "ste", "true_ste", "none")
+        if self.quantizer_type in noise_free and self.quantizer_noise_type != "none":
+            raise ValueError(
+                f"quantizer_type={self.quantizer_type} requires quantizer_noise_type='none'"
+            )
+        if self.quantizer_type not in noise_free and self.quantizer_noise_type == "none":
+            raise ValueError(f"quantizer_type={self.quantizer_type} requires a noise type")
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TrainerPhase":
+        known = {f.name for f in fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown trainer phase fields {sorted(unknown)}")
+        kw = dict(d)
+        for k in ("lr", "end_lr"):
+            if k in kw:
+                kw[k] = float(kw[k])  # YAML reads "1e-2" as a string
+        for k in ("softround_temperature", "noise_parameter"):
+            if k in kw:
+                kw[k] = tuple(float(v) for v in kw[k])
+        if "optimized_module" in kw:
+            # The reference calls the latent module "latent".
+            kw["optimized_module"] = tuple(
+                "latents" if m == "latent" else m for m in kw["optimized_module"]
+            )
+        return cls(**kw)
+
+
+@dataclass(frozen=True)
+class WarmupPhase:
+    """Keep the best ``candidates`` systems, then train each one phase."""
+
+    candidates: int
+    training_phase: TrainerPhase
+
+
+@dataclass(frozen=True)
+class Warmup:
+    phases: Tuple[WarmupPhase, ...] = ()
+
+
+@dataclass(frozen=True)
+class Preset:
+    preset_name: str
+    all_phases: Tuple[TrainerPhase, ...] = ()
+    warmup: Warmup = field(default_factory=Warmup)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Preset":
+        phases = tuple(TrainerPhase.from_dict(p) for p in d["all_phases"])
+        warm = Warmup(
+            tuple(
+                WarmupPhase(int(wp["candidates"]), TrainerPhase.from_dict(wp["training_phase"]))
+                for wp in d.get("warmup", {}).get("phases", [])
+            )
+        )
+        if phases and not any(p.quantize_model for p in phases):
+            raise ValueError(f"Preset {d['preset_name']} has no phase with NN quantization.")
+        return cls(preset_name=d["preset_name"], all_phases=phases, warmup=warm)
+
+
+def load_preset(name_or_path: str, n_itr: Optional[int] = None) -> Preset:
+    """Read ``preset_cfg/<name>.yaml`` (or a YAML path). ``n_itr`` replaces
+    the first phase's ``max_itr``, as the encoder's ``--n_itr`` does."""
+    import yaml
+
+    path = Path(name_or_path)
+    if name_or_path in PRESET_NAMES:
+        path = PRESET_CFG_DIR / f"{name_or_path}.yaml"
+    with open(path) as f:
+        preset = Preset.from_dict(yaml.safe_load(f))
+    if n_itr:
+        first = replace(preset.all_phases[0], max_itr=n_itr)
+        preset = replace(preset, all_phases=(first,) + preset.all_phases[1:])
+    return preset

@@ -1,0 +1,99 @@
+"""Where the time of one training step and one eval forward goes, on a GPU.
+
+    python -m coolchic_tpu_torch.utils.profile_step
+
+Builds the default decoder (arm 24,2; 40-wide synthesis; 7 grids) at 512x768
+with random weights (seeded), runs 20 training steps of
+the c3x first phase (softround + gaussian noise) and as many eval forwards,
+and prints one JSON line per measurement: wall time per step and per eval
+forward (host clock around synchronised work), then the device time by
+kernel from ``torch.profiler`` over a short window of each, with the share
+of the window's wall time the device was busy.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import torch
+
+H, W = 512, 768
+STEPS = 20
+
+
+def _device_table(prof, n_iter: int, top: int = 12) -> dict:
+    """Device time by kernel (GPU events only, so no operator is counted
+    twice), per iteration."""
+    from torch.autograd import DeviceType
+
+    rows = [
+        (evt.key, evt.self_device_time_total / n_iter / 1e3, evt.count / n_iter)
+        for evt in prof.key_averages()
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0
+    ]
+    rows.sort(key=lambda r: -r[1])
+    return {
+        "device_ms_per_iter": sum(r[1] for r in rows),
+        "kernels_per_iter": sum(r[2] for r in rows),
+        "top": [{"name": k[:90], "ms_per_iter": ms, "calls_per_iter": c} for k, ms, c in rows[:top]],
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_step needs a GPU", file=sys.stderr)
+        return 1
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from coolchic_tpu_torch.models.coolchic import init_coolchic_params
+    from coolchic_tpu_torch.params import tree_leaves
+    from coolchic_tpu_torch.train.presets import load_preset
+    from coolchic_tpu_torch.train.step import AdamState, eval_metrics, make_generator, train_step
+    from coolchic_tpu_torch.utils.types import DecoderConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    cfg = DecoderConfig().to_coolchic_config((H, W))
+    phase = load_preset("c3x").all_phases[0]
+    gen = make_generator(device, 0)
+    params = init_coolchic_params(gen, cfg, device, latent_init="normal")
+    tensors = tree_leaves(params)
+    for t in tensors:
+        t.requires_grad_(True)
+    opt = AdamState.zeros(tensors)
+    target = torch.rand(3, H, W, generator=gen, device=device)
+
+    def step():
+        train_step(params, tensors, opt, target, 1e-3, cfg, phase, 1e-3, 0.3, 0.25, gen)
+
+    def evaluate():
+        eval_metrics(params, cfg, target, 1e-3)
+
+    for name, fn in (("train_step", step), ("eval_forward", evaluate)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / STEPS * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEPS):
+                fn()
+            torch.cuda.synchronize()
+        table = _device_table(prof, STEPS)
+        print(json.dumps({
+            "what": name, "img_size": [H, W], "wall_ms": wall_ms,
+            "device_busy_share": table["device_ms_per_iter"] / wall_ms, **table,
+            "device": torch.cuda.get_device_name(0),
+        }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

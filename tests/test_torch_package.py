@@ -1,0 +1,153 @@
+"""Guards of the PyTorch port: no JAX import, the params bridge, the device
+default of the entry points, the presets and decoder configs read from the
+repo's YAML files, and the encode CLI on the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from coolchic_tpu.models.coolchic import init_coolchic_params as jax_init_params
+from coolchic_tpu.models.config import CoolChicConfig as JaxConfig
+from coolchic_tpu.utils.types import DecoderConfig as JaxDecoderConfig
+from coolchic_tpu.utils.types import EncoderConfig as JaxEncoderConfig
+from coolchic_tpu_torch.params import flatten_with_paths, from_numpy_pytree, to_numpy_pytree
+from coolchic_tpu_torch.train.presets import load_preset
+from coolchic_tpu_torch.utils.types import DecoderConfig, resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "coolchic_tpu")
+
+
+def _port_files():
+    return sorted((REPO / "coolchic_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_importing_the_encoder_loads_no_jax():
+    code = ("import sys, coolchic_tpu_torch.encode, coolchic_tpu_torch.train.encode; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'coolchic_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_params_round_trip_is_bit_identical():
+    params = jax_init_params(jax.random.PRNGKey(0), JaxConfig(img_size=(13, 21)),
+                             latent_init="normal")
+    np_params = jax.tree.map(np.asarray, params)
+    back = to_numpy_pytree(from_numpy_pytree(np_params, "cpu"))
+    assert jax.tree.structure(back) == jax.tree.structure(np_params)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(np_params)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    flat = flatten_with_paths(back)
+    assert "arm/layers/0/weight" in flat and "upsampling/preconcat/5" in flat
+    assert len(flat) == len(jax.tree.leaves(np_params))
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["c3x", "debug"])
+def test_presets_match_jax(name):
+    want = JaxEncoderConfig(std_recipe_name=name, n_itr=1234).recipe.to_preset()
+    got = load_preset(name, n_itr=1234)
+    assert got.preset_name == want.preset_name
+    assert len(got.all_phases) == len(want.all_phases)
+    for g, w in zip(got.all_phases, want.all_phases):
+        assert vars(g) == vars(w)
+    for g, w in zip(got.warmup.phases, want.warmup.phases):
+        assert g.candidates == w.candidates and vars(g.training_phase) == vars(w.training_phase)
+    assert got.all_phases[0].max_itr == 1234
+
+
+@pytest.mark.parametrize("name", ["hop", "lop", "mop", "vlop", None])
+def test_decoder_configs_match_jax(name):
+    import yaml
+
+    if name is None:
+        got, want = DecoderConfig(), JaxDecoderConfig()
+    else:
+        path = REPO / "cfg" / "dec" / f"{name}.yaml"
+        got = DecoderConfig.from_yaml(path)
+        want = JaxDecoderConfig(**yaml.safe_load(open(path)))
+    g, w = got.to_coolchic_config((32, 48)), want.to_coolchic_config((32, 48))
+    for field in ("layers_synthesis", "n_ft_per_res", "dim_arm", "n_hidden_layers_arm",
+                  "encoder_gain", "ups_k_size", "ups_preconcat_k_size", "latent_shapes"):
+        assert getattr(g, field) == getattr(w, field), field
+
+
+def _png(path, h=24, w=32):
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([x / w, y / h, 0.5 + 0.2 * np.sin(x / 3.0)], -1)
+    img = np.clip(img + 0.03 * rng.standard_normal(img.shape), 0, 1)
+    Image.fromarray((img * 255).astype(np.uint8)).save(path)
+
+
+def test_cli_encodes_a_png_on_the_cpu(tmp_path):
+    from coolchic_tpu_torch.encode import main
+
+    _png(tmp_path / "img.png")
+    workdir = tmp_path / "wd"
+    assert main(["--input", str(tmp_path / "img.png"), "--enc_preset", "debug",
+                 "--dec_cfg", str(REPO / "cfg" / "dec" / "vlop.yaml"),
+                 "--workdir", str(workdir), "--device", "cpu"]) == 0
+    header, row = (workdir / "results_best.tsv").read_text().splitlines()
+    row = dict(zip(header.split("\t"), row.split("\t")))
+    assert header.split("\t")[:9] == ["seq_name", "lmbda", "rate_bpp", "n_pixels", "psnr_db",
+                                      "psnr_db_estimate", "rate_latent_bpp", "loss",
+                                      "encoding_time_sec"]
+    assert row["n_pixels"] == str(24 * 32) and row["rate_bpp"] == "nan"
+    assert float(row["psnr_db_estimate"]) > 15.0 and float(row["rate_nn_bpp"]) > 0.0
+    saved = np.load(workdir / "params_quantized.npz")
+    assert saved["latents/0"].shape == (1, 24, 32)
+    q = float(saved["q_step/arm/weight"])
+    w = saved["arm/layers/0/weight"]
+    np.testing.assert_allclose(w / q, np.round(w / q), atol=1e-4)
+    assert int(saved["expgol/synthesis/bias"]) in range(13)
+
+
+def test_cli_output_waits_for_the_bitstream_writer(tmp_path):
+    from coolchic_tpu_torch.encode import main
+
+    with pytest.raises(NotImplementedError, match="bitstream"):
+        main(["--input", str(tmp_path / "x.png"), "--output", str(tmp_path / "x.cool")])
+    assert not (tmp_path / "x.cool").exists()
+
+
+def test_ppm_round_trip(tmp_path):
+    from coolchic_tpu_torch.io.image import load_frame_data_from_file, write_ppm
+
+    img = np.random.default_rng(1).uniform(size=(3, 5, 7)).astype(np.float32)
+    write_ppm(img, 8, str(tmp_path / "a.ppm"))
+    fd = load_frame_data_from_file(str(tmp_path / "a.ppm"))
+    assert fd.img_size == (5, 7) and fd.bitdepth == 8
+    np.testing.assert_allclose(fd.data, np.round(img * 255) / 255, atol=1e-6)
