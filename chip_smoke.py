@@ -8,19 +8,31 @@ Phases, one JSON line each:
   1. build: compile every kernel of ``coolchic_tpu_torch/csrc`` with nvcc
      (one process per source, started together).
   2. arm_rate kernel vs its plain PyTorch version (``models/arm.py``) for
-     (dim_arm, n_hidden) in {(8,1), (16,2), (24,2), (32,2)} on planes
-     16x24, 37x130 and 512x768, then on the 7-grid pyramid of a 512x768
-     image (the main path's shapes). Two comparisons per case:
-       * against the plain version with the ARM matmuls summed in the
-         kernel's order (sequential FMA, emulated exactly in float64):
-         rtol = atol = 1e-4;
-       * against the plain version as the port runs it (cuBLAS matmuls):
-         ``models.arm.rate_tolerance``: rtol = atol = 1e-4, with one more
-         term for two kinds of latent only, because cuBLAS sums in an order
-         that depends on the shape. Where the Laplace scale is under 1/8 the
-         ~1e-6 that moves mu moves the rate by up to ~1.1e-3 bits (at the
-         0.01 floor); over 12 bits an ulp of the CDF values moves a tail
-         latent's rate by ~2^(rate - 23) / ln 2.
+     (dim_arm, n_hidden) in {(8,1), (16,2), (24,2), (32,2), (24,0), (24,3)}
+     on planes 1x1, 5x3, 17x33 (ragged against the kernel's 16-latent
+     m-tiles and 64-latent items), 16x24, 37x130 and 512x768; on planes of
+     latents up to 3,000 in magnitude (past TF32's exact integers) for the
+     ARMs of ``utils/rate_check.py::LARGE_ARMS`` (n_hidden 0..3), each on
+     every seed of ``LARGE_SEEDS``; then on the 7-grid pyramid of a 512x768
+     image (the main path's shapes). Each case is held to two references with
+     ``models.arm.rate_tolerance`` (rtol = atol = 1e-4, with one more term
+     only for steep latents, Laplace scale under 1/8, and tail latents, over
+     12 bits, where f32 cannot resolve 1e-4), and reports the latents beyond
+     1e-4 by kind, ``neither`` being 0:
+       * the plain version in float64 (latents and weights cast);
+       * the plain version in f32 as the port runs it (cuBLAS matmuls),
+         except on the large-latent inputs where that version itself misses
+         float64: the line of each large-latent ARM lists the seeds held to
+         both references and those held to float64 alone.
+     The f32 plain version's own error against float64 is printed beside
+     the kernel's. The pyramid line times the kernel on prepared buffers
+     (``ms``: launches captured in a CUDA graph and replayed, device time
+     only), through the wrapper (``wrapper_ms``: CUDA events around
+     back-to-back calls; ``wrapper_host_ms``: the host's time per call) and
+     the plain version, beside three bounds: 3xTF32 at the TF32 peak
+     (``bound_ms``, a floor: 3xTF32 itself misses f32 accuracy on large
+     latents), f64 on the tensor cores (``bound_f64_ms``, the route taken)
+     and f32 FMA on the CUDA cores (``bound_simt_ms``, the SIMT design's).
   3. main path: encode a synthetic 512x768 RGB image (numpy seed 0) with the
      default DecoderConfig (arm 24,2; 40-wide synthesis; 7 grids) and the
      c3x recipe of preset_cfg/c3x.yaml, iteration counts cut (printed),
@@ -50,12 +62,14 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "smoke_out"  # encode outputs of the main-path run (gitignored)
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit).
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit).
+PEAK_TF32_FLOPS = 495e12  # tensor cores
+PEAK_F64_TENSOR_FLOPS = 67e12  # tensor cores, f64 mma
 PEAK_F32_FLOPS = 67e12  # CUDA cores, no tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
-ARM_CASES = [(8, 1), (16, 2), (24, 2), (32, 2)]
-PLANES = [(16, 24), (37, 130), (512, 768)]
+ARM_CASES = [(8, 1), (16, 2), (24, 2), (32, 2), (24, 0), (24, 3)]
+PLANES = [(1, 1), (5, 3), (17, 33), (16, 24), (37, 130), (512, 768)]
 IMG_H, IMG_W = 512, 768
 
 # Iteration cuts of the c3x recipe for the main-path run.
@@ -88,18 +102,39 @@ def time_ms(fn, n_warmup: int = 3, n_iter: int = 20, per_sample: int = 10) -> fl
     return statistics.median(times)
 
 
-def kernel_ms(latents, params, dim_arm, n_hidden) -> float:
-    """Time of the kernel alone, on buffers prepared once (the wrapper's
-    packing and concatenation are not timed)."""
+def kernel_ms(latents, params, dim_arm, n_hidden, per_graph: int = 20) -> float:
+    """Device time of the kernel alone: ``per_graph`` launches on buffers and
+    tables prepared once, captured in a CUDA graph and replayed, so that the
+    host's time per launch (which exceeds a small kernel's) is not timed."""
     import torch
 
     from coolchic_tpu_torch.ops import arm_rate as ar
 
-    flat = torch.cat([y.reshape(-1) for y in latents])
-    rate = torch.empty_like(flat)
-    weights = ar.pack_arm_weights(params, dim_arm, n_hidden)
-    planes = ar.plane_table(latents)
-    return time_ms(lambda: ar.launch_arm_rate(flat, rate, weights, planes, dim_arm, n_hidden))
+    layers = ar.layer_table(params, dim_arm, n_hidden, latents[0].device)
+    table = ar.plane_table(tuple(tuple(y.shape) for y in latents))
+    rate = torch.empty(table.n_latents, device=latents[0].device)
+    ar.launch_arm_rate(latents, rate, layers, table, dim_arm, n_hidden)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            ar.launch_arm_rate(latents, rate, layers, table, dim_arm, n_hidden)
+    return time_ms(graph.replay, per_sample=1) / per_graph
+
+
+def host_ms(fn, n: int = 200) -> float:
+    """Host time of one call (enqueue only, no synchronisation), the median
+    of ``n`` calls after a synchronised warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(times)
 
 
 def phase_build() -> None:
@@ -118,73 +153,79 @@ def phase_build() -> None:
           "ptxas": regs})
 
 
-def fma_order_rate(latents, params, dim_arm):
-    """The plain rate with every ARM matmul summed as the kernel sums it:
-    k ascending, one fused multiply-add per term (exact in float64, then
-    rounded to float32 once per step)."""
-    import torch
-
-    from coolchic_tpu_torch.models.arm import get_neighbors, latent_rate_bits
-
-    def mm(x, w):
-        acc = torch.zeros(x.shape[0], w.shape[0], device=x.device)
-        for k in range(x.shape[1]):
-            acc = (acc.double() + x[:, k : k + 1].double() * w[:, k][None].double()).float()
-        return acc
-
-    x = torch.cat([get_neighbors(y, dim_arm) for y in latents])
-    layers = params["layers"]
-    for layer in layers[:-1]:
-        x = torch.relu(mm(x, layer["weight"]) + layer["bias"] + x)
-    raw = mm(x, layers[-1]["weight"]) + layers[-1]["bias"]
-    scale = torch.exp(torch.clamp(raw[:, 1] - 4.0, -4.6, 5.0))
-    flat = torch.cat([y.reshape(-1) for y in latents])
-    return latent_rate_bits(flat, raw[:, 0], scale)
-
-
 def arm_case_params(dim_arm, n_hidden, gen):
+    """Init rules, then a first weight of 0.2 N(0, 1) and further hidden
+    weights of 0.05 N(0, 1), so that mu, the scale and every layer vary."""
     import torch
 
     from coolchic_tpu_torch.models.arm import init_arm_params
 
     params = init_arm_params(gen, dim_arm, n_hidden, "cuda")
-    w0 = params["layers"][0]["weight"]
-    params["layers"][0]["weight"] = torch.randn(w0.shape, generator=gen, device="cuda") * 0.2
+    for i, layer in enumerate(params["layers"][:-1]):
+        layer["weight"] = torch.randn(layer["weight"].shape, generator=gen,
+                                      device="cuda") * (0.2 if i == 0 else 0.05)
     return params
 
 
-def compare(got, latents, params, dim_arm) -> dict:
-    import torch
-
-    from coolchic_tpu_torch.models.arm import (
-        STEEP_SCALE, TAIL_RATE, arm_rate_plain, rate_tolerance,
-    )
-
-    plain, _, log_scale = arm_rate_plain(latents, params, dim_arm)
-    scale = torch.exp(torch.clamp(log_scale - 4.0, -4.6, 5.0))
-    ordered = fma_order_rate(latents, params, dim_arm)
-    torch.cuda.synchronize()
-    ok_ordered = bool(torch.allclose(got, ordered, rtol=1e-4, atol=1e-4))
-    err = (got - plain).abs()
-    ok_plain = bool(torch.all(err <= rate_tolerance(plain, scale)))
-    # Latents beyond rtol = atol = 1e-4, by the extra term they fall under.
-    beyond = err > 1e-4 + 1e-4 * plain.abs()
-    steep, tail = scale < STEEP_SCALE, plain.abs() > TAIL_RATE
-    out = {
-        "max_abs_err": err.max().item(),
-        "max_abs_err_fma_order": (got - ordered).abs().max().item(),
-        "ok_fma_order_1e-4": ok_ordered,
-        "ok_plain_rate_tolerance": ok_plain,
-        "n_beyond_1e-4": {
-            "steep": int((beyond & steep & ~tail).sum()),
-            "tail": int((beyond & tail & ~steep).sum()),
-            "steep_and_tail": int((beyond & steep & tail).sum()),
-            "neither": int((beyond & ~steep & ~tail).sum()),
-        },
+def summary(res) -> dict:
+    """The numbers of a ``rate_check.check_rate`` result that a line reports."""
+    return {
+        "max_abs_err": res["vs_f32"]["max_abs_err"],
+        "max_abs_err_f64": res["vs_f64"]["max_abs_err"],
+        "plain_f32_max_abs_err_f64": res["plain_f32_max_abs_err_f64"],
+        "n_beyond_1e-4_f64": res["vs_f64"]["n_beyond_1e-4"],
+        "n_beyond_1e-4": res["vs_f32"]["n_beyond_1e-4"],
     }
-    if not (ok_ordered and ok_plain):
+
+
+def compare(got, latents, params, dim_arm) -> dict:
+    """The kernel's rate against the float64 and the cuBLAS f32 plain rates;
+    raises unless both are within rate_tolerance with no latent beyond 1e-4
+    that is neither steep nor tail."""
+    from coolchic_tpu_torch.utils.rate_check import check_rate, holds
+
+    res = check_rate(got, latents, params, dim_arm)
+    out = summary(res)
+    if not (holds(res["vs_f64"]) and holds(res["vs_f32"])):
         raise AssertionError(f"arm_rate kernel disagrees with its plain version: {out}")
     return out
+
+
+def large_latent_checks(dim_arm, n_hidden) -> dict:
+    """The kernel on every seed of LARGE_SEEDS: held to float64 on each, and
+    to cuBLAS f32 on each where cuBLAS is itself within tolerance of
+    float64. Raises on a miss; returns the seeds by reference, the largest
+    errors (against cuBLAS: over the seeds held to it) and the latents
+    beyond 1e-4 of float64 over all seeds."""
+    from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.params import from_numpy_pytree
+    from coolchic_tpu_torch.utils.rate_check import (
+        LARGE_PLANES, LARGE_SEEDS, check_rate, holds, large_latent_case,
+    )
+
+    both, f64_only, max_latent = [], [], 0.0
+    err_f64 = err_cublas = plain_err = 0.0
+    beyond_f64 = dict.fromkeys(("steep", "tail", "steep_and_tail", "neither"), 0)
+    for seed in LARGE_SEEDS:
+        params, latents = large_latent_case(dim_arm, n_hidden, seed)
+        params, latents = from_numpy_pytree(params, "cuda"), from_numpy_pytree(latents, "cuda")
+        max_latent = max([max_latent] + [y.abs().max().item() for y in latents])
+        res = check_rate(ar.arm_rate_pyramid(latents, params, dim_arm, n_hidden), latents,
+                         params, dim_arm)
+        if not holds(res["vs_f64"]) or (res["f32_holds"] and not holds(res["vs_f32"])):
+            raise AssertionError(f"arm_rate kernel disagrees on large latents, seed {seed}: "
+                                 f"{summary(res)}")
+        (both if res["f32_holds"] else f64_only).append(seed)
+        err_f64 = max(err_f64, res["vs_f64"]["max_abs_err"])
+        plain_err = max(plain_err, res["plain_f32_max_abs_err_f64"])
+        if res["f32_holds"]:
+            err_cublas = max(err_cublas, res["vs_f32"]["max_abs_err"])
+        for kind, n in res["vs_f64"]["n_beyond_1e-4"].items():
+            beyond_f64[kind] += n
+    return {"hw": [list(hw) for hw in LARGE_PLANES], "max_abs_latent": max_latent,
+            "seeds_vs_f64_and_cublas": both, "seeds_vs_f64_only": f64_only,
+            "max_abs_err_f64": err_f64, "max_abs_err_cublas": err_cublas,
+            "plain_f32_max_abs_err_f64": plain_err, "n_beyond_1e-4_f64": beyond_f64}
 
 
 def phase_kernel_checks() -> dict:
@@ -195,9 +236,10 @@ def phase_kernel_checks() -> dict:
     from coolchic_tpu_torch.models.arm import arm_rate_plain
     from coolchic_tpu_torch.models.config import CoolChicConfig
     from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.utils.rate_check import LARGE_ARMS
 
     for dim_arm, n_hidden in ARM_CASES:
-        gen = torch.Generator("cuda").manual_seed(dim_arm)
+        gen = torch.Generator("cuda").manual_seed(10 * dim_arm + n_hidden)
         params = arm_case_params(dim_arm, n_hidden, gen)
         for hw in PLANES:
             lat = torch.round(torch.randn(hw, generator=gen, device="cuda") * 3.0)
@@ -208,6 +250,9 @@ def phase_kernel_checks() -> dict:
                 line["ms"] = kernel_ms([lat[None]], params, dim_arm, n_hidden)
                 line["plain_ms"] = time_ms(lambda: arm_rate_plain([lat[None]], params, dim_arm))
             emit(line)
+    for dim_arm, n_hidden in LARGE_ARMS:
+        emit({"phase": "arm_rate_large_latents", "dim_arm": dim_arm, "n_hidden": n_hidden,
+              **large_latent_checks(dim_arm, n_hidden)})
 
     # The main path's shapes: 7 grids of a 512x768 image, flagship ARM.
     cfg = CoolChicConfig(img_size=(IMG_H, IMG_W))
@@ -225,20 +270,33 @@ def phase_kernel_checks() -> dict:
     res = compare(got, latents, params, dim_arm)
     ms = kernel_ms(latents, params, dim_arm, n_hidden)
     wrapper_ms = time_ms(lambda: ar.arm_rate_pyramid(latents, params, dim_arm, n_hidden))
+    wrapper_host_ms = host_ms(lambda: ar.arm_rate_pyramid(latents, params, dim_arm, n_hidden))
     plain_ms = time_ms(lambda: arm_rate_plain(latents, params, dim_arm))
 
+    # Bounds: the ARM's multiply-adds (the function's, not the padded head's)
+    # at f32 accuracy; the plane read once, the rate written once.
     n = cfg.n_latents
-    flops = n * (2 * (n_hidden * dim_arm * dim_arm + 2 * dim_arm) + 2 * n_hidden * dim_arm + 2)
+    macs = n * (n_hidden * dim_arm * dim_arm + 2 * dim_arm)
     n_weights = n_hidden * (dim_arm * dim_arm + dim_arm) + 2 * dim_arm + 2
     n_bytes = 4 * (2 * n + n_weights)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES_PER_S
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = 3 * 2 * macs / PEAK_TF32_FLOPS  # 3xTF32: three products per multiply-add
+    t_f64 = 2 * macs / PEAK_F64_TENSOR_FLOPS  # the route taken: f64 mma
+    # The SIMT design's figure: f32 FMA, adds and ReLUs on the CUDA cores.
+    t_simt = n * (2 * (n_hidden * dim_arm * dim_arm + 2 * dim_arm) + 2 * n_hidden * dim_arm + 2) \
+        / PEAK_F32_FLOPS
     out = {
-        "max_abs_err": res["max_abs_err"], "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        "max_abs_err": res["max_abs_err"], "ms": ms, "wrapper_ms": wrapper_ms,
+        "wrapper_host_ms": wrapper_host_ms, "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_f64_ms": 1e3 * max(t_f64, t_bytes),
+        "bound_simt_ms": 1e3 * max(t_simt, t_bytes),
     }
+    for k in ("bound_ms", "bound_f64_ms", "bound_simt_ms"):
+        out["share_of_" + k] = out[k] / ms
     emit({"phase": "arm_rate_pyramid", "latent_shapes": [list(s) for s in cfg.latent_shapes],
-          "n_latents": n, "dim_arm": dim_arm, "n_hidden": n_hidden, "flops": flops,
+          "n_latents": n, "dim_arm": dim_arm, "n_hidden": n_hidden, "macs": macs,
           "bytes": n_bytes, **res, **out})
     return out
 
@@ -309,7 +367,7 @@ def phase_main_path() -> int:
     stats = run.result.stats
 
     cfg = dec.to_coolchic_config((IMG_H, IMG_W))
-    launches_per_forward = math.ceil(sum(c for c, _, _ in cfg.latent_shapes) / ar.MAX_PLANES)
+    launches_per_forward = ar.plane_table(tuple(cfg.latent_shapes)).n_launches
     if launches != stats.n_eval_forwards * launches_per_forward:
         raise AssertionError(f"{launches} kernel launches for {stats.n_eval_forwards} eval forwards")
     row = run.row
@@ -382,6 +440,9 @@ def main() -> int:
         "plain_ms": pyramid["plain_ms"],
         "bound_ms": pyramid["bound_ms"],
         "bound_by": pyramid["bound_by"],
+        "bound_f64_ms": pyramid["bound_f64_ms"],
+        "bound_simt_ms": pyramid["bound_simt_ms"],
+        "wrapper_ms": pyramid["wrapper_ms"],
         "library_ms": None,  # no single PyTorch call computes this function
     }], "seconds": time.perf_counter() - t0})
     smi = subprocess.run(

@@ -2,24 +2,28 @@
 
 Replaces ``coolchic_tpu/ops/pallas_arm.py::_kernel`` (launched there by
 ``arm_rate_pallas`` once per plane, through the ``arm_rate`` dispatcher).
-Here one launch covers every plane of the latent pyramid.
+Here one launch covers up to 64 planes of the latent pyramid, read where
+they lie, with the weights read from the per-layer tensors: nothing is
+concatenated or packed on the host or the device.
 
 On a CPU tensor the wrapper runs the plain version
 (``models/arm.py::arm_rate_plain``). On a CUDA tensor it launches the kernel
 and raises if the build or the launch fails: there is no fallback.
 
-Bound on an H100 SXM (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s):
-at 512x768 with 7 grids (524,256 latents), dim_arm = 24, n_hidden = 2, the
-kernel does ~1,200 FMA per latent, ~1.3 GFLOP in all, against ~4.2 MB of
-plane-in / rate-out traffic: ~19 us of f32 FMA against ~1.3 us of memory,
-so it is bound by operations. ``chip_smoke.py`` recomputes the bound for
-the shapes it runs.
+Bound on an H100 SXM at 512x768 with 7 grids (524,256 latents),
+dim_arm = 24, n_hidden = 2: 1,200 multiply-adds per latent, 1.26 GFLOP,
+against ~4.2 MB of plane-in / rate-out traffic (~1.3 us at 3.35 TB/s): bound
+by operations. The kernel does them in f64 on the tensor cores (67 TFLOP/s
+dense), ~18.8 us; 3xTF32 at the TF32 peak (495 TFLOP/s) would take ~7.6 us
+but misses f32 accuracy (see the kernel's note). ``chip_smoke.py``
+recomputes the bounds for the shapes it runs.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from functools import lru_cache
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -29,7 +33,8 @@ from coolchic_tpu_torch.models.arm import arm_rate_plain
 # callers that count a run set it to 0 first.
 launch_count = 0
 
-MAX_PLANES = 64  # kMaxPlanes of csrc/arm_rate.cu
+MAX_PLANES = 64  # kMaxPlanes of csrc/arm_rate.cu: planes per launch
+MAX_HIDDEN = 1023  # kMaxHidden of csrc/arm_rate.cu
 _LIB = None
 
 
@@ -39,26 +44,64 @@ def _library() -> ctypes.CDLL:
         from coolchic_tpu_torch.ops.build import load_library
 
         lib, _ = load_library("arm_rate")
-        lib.arm_rate_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.arm_rate_launch.argtypes = [p, p, p, p, p, i, p, i, i, p]
         lib.arm_rate_launch.restype = ctypes.c_int
-        lib.arm_rate_max_planes.restype = ctypes.c_int
-        if lib.arm_rate_max_planes() != MAX_PLANES:
-            raise RuntimeError("csrc/arm_rate.cu and ops/arm_rate.py disagree on kMaxPlanes")
+        limits = (ctypes.c_int(), ctypes.c_int())
+        lib.arm_rate_limits(ctypes.byref(limits[0]), ctypes.byref(limits[1]))
+        if (limits[0].value, limits[1].value) != (MAX_PLANES, MAX_HIDDEN):
+            raise RuntimeError("csrc/arm_rate.cu and ops/arm_rate.py disagree on their limits")
         _LIB = lib
     return _LIB
 
 
-def pack_arm_weights(arm_params: Dict, dim_arm: int, n_hidden: int) -> torch.Tensor:
-    """Flat f32 weights in the kernel's layout: per hidden layer W[C][C]
-    (out-major) then b[C]; the head W[2][C], b[2]; zeros to a multiple of 4."""
+class PlaneTable(NamedTuple):
+    """Geometry of a pyramid of [C, H, W] grids, one entry per plane in
+    forward order (grid-major, then channel): its grid, channel, H, W and
+    offset into the flat rate; the chunks of at most ``MAX_PLANES`` planes,
+    one launch each, with their ctypes arrays of H, W and offset."""
+
+    planes: Tuple[Tuple[int, int, int, int, int], ...]
+    n_latents: int
+    chunks: Tuple[Tuple[int, int, ctypes.Array, ctypes.Array, ctypes.Array], ...]
+
+    @property
+    def n_launches(self) -> int:
+        return len(self.chunks)
+
+
+@lru_cache(maxsize=64)
+def plane_table(shapes: Tuple[Tuple[int, int, int], ...]) -> PlaneTable:
+    """The plane table of grids of these [C, H, W] shapes (cached)."""
+    planes, offset = [], 0
+    for grid, (c, h, w) in enumerate(shapes):
+        for ch in range(c):
+            planes.append((grid, ch, h, w, offset))
+            offset += h * w
+    chunks = []
+    for start in range(0, len(planes), MAX_PLANES):
+        part = planes[start : start + MAX_PLANES]
+        n = len(part)
+        chunks.append((
+            start, n,
+            (ctypes.c_int * n)(*[p[2] for p in part]),
+            (ctypes.c_int * n)(*[p[3] for p in part]),
+            (ctypes.c_longlong * n)(*[p[4] for p in part]),
+        ))
+    return PlaneTable(tuple(planes), offset, tuple(chunks))
+
+
+def layer_table(arm_params: Dict, dim_arm: int, n_hidden: int, device) -> List[torch.Tensor]:
+    """The tensors the kernel reads, in its order: weight, bias of each hidden
+    layer, then of the head. Raises on what the kernel does not take: another
+    layer count or shape, another dtype than f32, a non-contiguous tensor, or
+    another device than the latents'."""
     layers = arm_params["layers"]
     if len(layers) != n_hidden + 1:
         raise ValueError(f"expected {n_hidden + 1} ARM layers, found {len(layers)}")
-    parts = []
+    if n_hidden > MAX_HIDDEN:
+        raise ValueError(f"the ARM kernel takes at most {MAX_HIDDEN} hidden layers")
+    out = []
     for i, layer in enumerate(layers):
         out_ft = 2 if i == n_hidden else dim_arm
         w, b = layer["weight"], layer["bias"]
@@ -66,50 +109,38 @@ def pack_arm_weights(arm_params: Dict, dim_arm: int, n_hidden: int) -> torch.Ten
             raise ValueError(f"ARM layer {i}: weight {tuple(w.shape)}, bias {tuple(b.shape)}")
         if w.dtype != torch.float32 or b.dtype != torch.float32:
             raise TypeError("ARM weights must be float32")
-        parts += [w.reshape(-1), b]
-    flat = torch.cat(parts)
-    pad = (-flat.numel()) % 4
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    return flat.contiguous()
-
-
-def plane_table(latents: Sequence[torch.Tensor]) -> List[Tuple[int, int, int]]:
-    """(H, W, offset into the flat vector) of every plane, in forward order."""
-    planes, offset = [], 0
-    for y in latents:
-        c, h, w = y.shape
-        for _ in range(c):
-            planes.append((h, w, offset))
-            offset += h * w
-    return planes
+        if not (w.is_contiguous() and b.is_contiguous()):
+            raise ValueError(f"ARM layer {i}: weight and bias must be contiguous")
+        if w.device != device or b.device != device:
+            raise ValueError("ARM weights and latents must be on one device")
+        out += [w, b]
+    return out
 
 
 def launch_arm_rate(
-    flat: torch.Tensor,
+    latents: Sequence[torch.Tensor],
     rate: torch.Tensor,
-    weights: torch.Tensor,
-    planes: Sequence[Tuple[int, int, int]],
+    layers: Sequence[torch.Tensor],
+    table: PlaneTable,
     dim_arm: int,
     n_hidden: int,
 ) -> None:
-    """Launch the kernel on prepared CUDA buffers: ``flat`` latents and
-    ``rate`` output (f32, contiguous, one length), ``weights`` from
-    ``pack_arm_weights``, ``planes`` from ``plane_table``. One launch per
-    64 planes; raises on a launch error."""
+    """Launch the kernel on CUDA buffers: contiguous f32 ``latents`` grids
+    described by ``table``, the flat f32 ``rate`` output, ``layers`` from
+    ``layer_table``. One launch per chunk of the table; raises on a launch
+    error."""
     global launch_count
     lib = _library()
-    stream = torch.cuda.current_stream(flat.device).cuda_stream
-    with torch.cuda.device(flat.device):
-        for start in range(0, len(planes), MAX_PLANES):
-            chunk = planes[start : start + MAX_PLANES]
-            n = len(chunk)
-            hs = (ctypes.c_int * n)(*[p[0] for p in chunk])
-            ws = (ctypes.c_int * n)(*[p[1] for p in chunk])
-            offs = (ctypes.c_longlong * n)(*[p[2] for p in chunk])
+    device = rate.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    bases = [y.data_ptr() for y in latents]
+    plane_ptrs = [bases[g] + 4 * ch * h * w for g, ch, h, w, _ in table.planes]
+    layer_ptrs = (ctypes.c_void_p * len(layers))(*[t.data_ptr() for t in layers])
+    with torch.cuda.device(device):
+        for start, n, hs, ws, offs in table.chunks:
+            ptrs = (ctypes.c_void_p * n)(*plane_ptrs[start : start + n])
             err = lib.arm_rate_launch(
-                flat.data_ptr(), rate.data_ptr(), weights.data_ptr(), weights.numel(),
-                dim_arm, n_hidden, n, hs, ws, offs, stream,
+                rate.data_ptr(), ptrs, hs, ws, offs, n, layer_ptrs, n_hidden, dim_arm, stream
             )
             if err != 0:
                 raise RuntimeError(f"arm_rate kernel launch failed with CUDA error {err}")
@@ -136,12 +167,11 @@ def arm_rate_pyramid(
     if device.type != "cuda":
         raise ValueError(f"arm_rate runs on cpu or cuda tensors, found {device}")
 
-    weights = pack_arm_weights(arm_params, dim_arm, n_hidden)
-    if weights.device != device:
-        raise ValueError("ARM weights and latents must be on one device")
-    flat = torch.cat([y.reshape(-1) for y in latents])
-    rate = torch.empty_like(flat)
-    launch_arm_rate(flat, rate, weights, plane_table(latents), dim_arm, n_hidden)
+    layers = layer_table(arm_params, dim_arm, n_hidden, device)
+    latents = [y.contiguous() for y in latents]
+    table = plane_table(tuple(tuple(y.shape) for y in latents))
+    rate = torch.empty(table.n_latents, device=device)
+    launch_arm_rate(latents, rate, layers, table, dim_arm, n_hidden)
     return rate
 
 

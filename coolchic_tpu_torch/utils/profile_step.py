@@ -7,8 +7,11 @@ with random weights (seeded), runs 20 training steps of
 the c3x first phase (softround + gaussian noise) and as many eval forwards,
 and prints one JSON line per measurement: wall time per step and per eval
 forward (host clock around synchronised work), then the device time by
-kernel from ``torch.profiler`` over a short window of each, with the share
-of the window's wall time the device was busy.
+kernel from ``torch.profiler`` over a window of as many of each (after one
+unrecorded warm-up iteration of the profiler), with the share of the wall
+time the device was busy. The eval-forward line also gives the ARM kernel's
+launches as the wrapper counted them over the window beside the profiler's
+count (``profile_complete``: the profiler saw every launch).
 """
 
 from __future__ import annotations
@@ -25,19 +28,23 @@ STEPS = 20
 
 def _device_table(prof, n_iter: int, top: int = 12) -> dict:
     """Device time by kernel (GPU events only, so no operator is counted
-    twice), per iteration."""
+    twice, and not the schedule's ``ProfilerStep`` spans), per iteration."""
     from torch.autograd import DeviceType
 
     rows = [
-        (evt.key, evt.self_device_time_total / n_iter / 1e3, evt.count / n_iter)
+        (evt.key, evt.self_device_time_total / n_iter / 1e3, evt.count / n_iter,
+         evt.self_device_time_total / evt.count / 1e3)
         for evt in prof.key_averages()
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0
+        and not evt.key.startswith("ProfilerStep")
     ]
     rows.sort(key=lambda r: -r[1])
     return {
         "device_ms_per_iter": sum(r[1] for r in rows),
         "kernels_per_iter": sum(r[2] for r in rows),
-        "top": [{"name": k[:90], "ms_per_iter": ms, "calls_per_iter": c} for k, ms, c in rows[:top]],
+        "top": [{"name": k[:90], "ms_per_iter": ms, "calls_per_iter": c, "ms_per_call": per_call}
+                for k, ms, c, per_call in rows[:top]],
+        "arm_rate_calls": sum(round(r[2] * n_iter) for r in rows if "arm_rate_kernel" in r[0]),
     }
 
 
@@ -46,9 +53,10 @@ def main() -> int:
         print("profile_step needs a GPU", file=sys.stderr)
         return 1
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from coolchic_tpu_torch.models.coolchic import init_coolchic_params
+    from coolchic_tpu_torch.ops import arm_rate as ar
     from coolchic_tpu_torch.params import tree_leaves
     from coolchic_tpu_torch.train.presets import load_preset
     from coolchic_tpu_torch.train.step import AdamState, eval_metrics, make_generator, train_step
@@ -82,14 +90,21 @@ def main() -> int:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / STEPS * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(STEPS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=STEPS, repeat=1)) as prof:
+            for i in range(1 + STEPS):
+                if i == 1:
+                    ar.launch_count = 0
                 fn()
-            torch.cuda.synchronize()
+                if i in (0, STEPS):  # the warm-up's kernels end before the window
+                    torch.cuda.synchronize()
+                prof.step()
         table = _device_table(prof, STEPS)
         print(json.dumps({
             "what": name, "img_size": [H, W], "wall_ms": wall_ms,
             "device_busy_share": table["device_ms_per_iter"] / wall_ms, **table,
+            "arm_rate_launches": ar.launch_count,
+            "profile_complete": table["arm_rate_calls"] == ar.launch_count,
             "device": torch.cuda.get_device_name(0),
         }), flush=True)
     return 0

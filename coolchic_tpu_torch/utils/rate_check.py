@@ -1,0 +1,95 @@
+"""Checks of an ARM rate against its references, shared by the tests and
+``chip_smoke.py``.
+
+The references of an f32 rate are the plain version in float64 (latents and
+weights cast) and the plain version in f32 (``models/arm.py``), both held
+with ``models.arm.rate_tolerance``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from coolchic_tpu_torch.models.arm import (
+    STEEP_SCALE, TAIL_RATE, ArmParams, arm_rate_plain, rate_tolerance,
+)
+
+# Inputs past the integers TF32 holds exactly: (dim_arm, n_hidden) of the
+# cases, each run on every seed of LARGE_SEEDS (a fixed range, not picked).
+LARGE_ARMS = ((24, 0), (24, 1), (24, 2), (24, 3), (32, 2), (16, 2), (8, 1))
+LARGE_SEEDS = range(1, 40)
+LARGE_PLANES = ((1, 1), (5, 3), (17, 33), (37, 130))
+
+
+def large_latent_case(dim_arm: int, n_hidden: int, seed: int) -> Tuple[Dict, List[np.ndarray]]:
+    """ARM params and [1, H, W] latent planes as numpy f32, from a numpy seed.
+    Params: first hidden weight 0.2 N(0, 1), further hidden ones 0.05 N(0, 1),
+    head N(0, 1) / 4, zero biases. Planes ``LARGE_PLANES`` of round(N(0, 3))
+    latents with one in 64 set to +-(2049 .. 3000)."""
+    rng = np.random.default_rng(seed)
+    layers = [{"weight": rng.standard_normal((dim_arm, dim_arm)) * (0.2 if i == 0 else 0.05),
+               "bias": np.zeros(dim_arm)} for i in range(n_hidden)]
+    layers.append({"weight": rng.standard_normal((2, dim_arm)) / 4, "bias": np.zeros(2)})
+    params = {"layers": [{k: v.astype(np.float32) for k, v in layer.items()} for layer in layers]}
+    latents = []
+    for h, w in LARGE_PLANES:
+        lat = np.round(rng.standard_normal((1, h, w)) * 3.0)
+        big = rng.integers(2049, 3001, (1, h, w)) * rng.choice([-1, 1], (1, h, w))
+        latents.append(np.where(rng.random((1, h, w)) < 1 / 64, big, lat).astype(np.float32))
+    return params, latents
+
+
+def compare_rates(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> Dict:
+    """``got`` against the reference ``want`` (with its Laplace ``scale``):
+    the largest error, whether every latent is within ``rate_tolerance``,
+    and the latents beyond rtol = atol = 1e-4 by the extra term they fall
+    under (``neither`` must be 0)."""
+    err = (got - want).abs()
+    beyond = err > 1e-4 + 1e-4 * want.abs()
+    steep, tail = scale < STEEP_SCALE, want.abs() > TAIL_RATE
+    return {
+        "max_abs_err": err.max().item() if err.numel() else 0.0,
+        "ok": bool(torch.all(err <= rate_tolerance(want, scale))),
+        "n_beyond_1e-4": {
+            "steep": int((beyond & steep & ~tail).sum()),
+            "tail": int((beyond & tail & ~steep).sum()),
+            "steep_and_tail": int((beyond & steep & tail).sum()),
+            "neither": int((beyond & ~steep & ~tail).sum()),
+        },
+    }
+
+
+def holds(res: Dict) -> bool:
+    """A ``compare_rates`` result within tolerance with ``neither`` = 0."""
+    return res["ok"] and res["n_beyond_1e-4"]["neither"] == 0
+
+
+def arm_rate_f64(
+    latents: Sequence[torch.Tensor], params: ArmParams, dim_arm: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain rate with latents and weights cast to float64, and its
+    Laplace scale, both cast back to float32."""
+    p64 = {"layers": [{k: v.double() for k, v in layer.items()} for layer in params["layers"]]}
+    rate, _, log_scale = arm_rate_plain([y.double() for y in latents], p64, dim_arm)
+    scale = torch.exp(torch.clamp(log_scale - 4.0, -4.6, 5.0))
+    return rate.float(), scale.float()
+
+
+def check_rate(got: torch.Tensor, latents: Sequence[torch.Tensor], params: ArmParams,
+               dim_arm: int) -> Dict:
+    """``got`` against the float64 and the f32 plain rates (on the latents'
+    device: cuBLAS on a GPU), and the f32 plain rate against float64.
+    ``f32_holds`` says whether the f32 plain rate is itself within tolerance
+    of float64: where it is not, it is no yardstick."""
+    want64, scale64 = arm_rate_f64(latents, params, dim_arm)
+    plain, _, log_scale = arm_rate_plain(latents, params, dim_arm)
+    scale = torch.exp(torch.clamp(log_scale - 4.0, -4.6, 5.0))
+    return {
+        "vs_f64": compare_rates(got, want64, scale64),
+        "vs_f32": compare_rates(got, plain, scale),
+        "f32_holds": holds(compare_rates(plain, want64, scale64)),
+        "plain_f32_max_abs_err_f64": (plain - want64).abs().max().item(),
+    }

@@ -5,24 +5,35 @@ installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerance: ``models.arm.rate_tolerance`` (rtol = atol = 1e-4, plus what f32
-resolves for latents whose Laplace scale is under 1/8 or whose rate is over
-12 bits; cuBLAS sums the plain ARM's matmuls in another order than the
-kernel).
+The kernel (float64 mma on the tensor cores) is held to two references with
+``models.arm.rate_tolerance`` (rtol = atol = 1e-4, plus what f32 resolves
+for latents whose Laplace scale is under 1/8 or whose rate is over 12
+bits), with no latent beyond 1e-4 that is neither: the plain version in
+float64, and the plain version in f32 as the port runs it (cuBLAS, which
+sums in another order than the kernel). On latents past TF32's exact
+integers the f32 plain version itself misses float64 on some inputs; there
+the kernel is held to float64 alone (``utils/rate_check.py``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from coolchic_tpu_torch.models.arm import arm_rate_plain, init_arm_params, rate_tolerance
+from coolchic_tpu_torch.models.arm import init_arm_params
 from coolchic_tpu_torch.models.config import CoolChicConfig
 from coolchic_tpu_torch.models.coolchic import init_coolchic_params
 from coolchic_tpu_torch.ops import arm_rate as ops
 from coolchic_tpu_torch.params import from_numpy_pytree, to_numpy_pytree
 from coolchic_tpu_torch.train.step import eval_metrics
+from coolchic_tpu_torch.utils.rate_check import (
+    LARGE_ARMS, LARGE_SEEDS, check_rate, holds, large_latent_case,
+)
 
 pytestmark = pytest.mark.cuda
+
+# Ragged planes: one latent, under one 16-latent m-tile, not a multiple of
+# 16 or of the 64-latent item, and a plane of many items.
+RAGGED = ((1, 1), (5, 3), (17, 33), (37, 130))
 
 
 @pytest.fixture
@@ -39,21 +50,60 @@ def _arm_params(dim_arm, n_hidden, seed, device):
     params = init_arm_params(gen, dim_arm, n_hidden, device)
     w0 = params["layers"][0]["weight"]
     params["layers"][0]["weight"] = torch.randn(w0.shape, generator=gen, device=device) * 0.2
+    for layer in params["layers"][1:-1]:  # hidden layers past the first: small, nonzero
+        layer["weight"] = torch.randn(layer["weight"].shape, generator=gen, device=device) * 0.05
     return params, gen
 
 
-@pytest.mark.parametrize("dim_arm,n_hidden", [(8, 1), (16, 2), (24, 2), (32, 2), (24, 0)])
+def assert_kernel_close(got, latents, params, dim_arm):
+    res = check_rate(got, latents, params, dim_arm)
+    assert holds(res["vs_f64"]) and holds(res["vs_f32"]), res
+
+
+@pytest.mark.parametrize("dim_arm,n_hidden", [(8, 1), (16, 2), (24, 2), (32, 2), (24, 0),
+                                              (16, 3), (32, 0), (8, 3)])
 def test_kernel_matches_plain(cuda, dim_arm, n_hidden):
     params, gen = _arm_params(dim_arm, n_hidden, dim_arm, cuda)
     latents = [torch.round(torch.randn((1, h, w), generator=gen, device=cuda) * 3.0)
-               for h, w in ((16, 24), (37, 130), (9, 5))]
+               for h, w in RAGGED]
     count = ops.launch_count
     got = ops.arm_rate_pyramid(latents, params, dim_arm, n_hidden)
     assert ops.launch_count == count + 1
-    want, _, log_scale = arm_rate_plain(latents, params, dim_arm)
-    scale = torch.exp(torch.clamp(log_scale - 4.0, -4.6, 5.0))
-    torch.cuda.synchronize()
-    assert torch.all((got - want).abs() <= rate_tolerance(want, scale))
+    assert_kernel_close(got, latents, params, dim_arm)
+
+
+@pytest.mark.parametrize("dim_arm,n_hidden", LARGE_ARMS)
+def test_kernel_on_latents_beyond_tf32_integers(cuda, dim_arm, n_hidden):
+    """Every seed of LARGE_SEEDS: the kernel within tolerance of float64, and
+    of cuBLAS f32 wherever cuBLAS itself is within tolerance of float64."""
+    f32_off = []
+    for seed in LARGE_SEEDS:
+        params, latents = large_latent_case(dim_arm, n_hidden, seed)
+        params, latents = from_numpy_pytree(params, cuda), from_numpy_pytree(latents, cuda)
+        assert max(y.abs().max().item() for y in latents) > 2048
+        res = check_rate(ops.arm_rate_pyramid(latents, params, dim_arm, n_hidden), latents,
+                         params, dim_arm)
+        assert holds(res["vs_f64"]), (seed, res)
+        if res["f32_holds"]:
+            assert holds(res["vs_f32"]), (seed, res)
+        else:
+            f32_off.append(seed)
+    assert len(f32_off) < len(LARGE_SEEDS) // 2, f32_off
+
+
+@pytest.mark.parametrize("dim_arm,n_hidden,shrink", [(32, 32, 0.2), (32, 55, 0.2), (8, 806, 0.02)])
+def test_hidden_layers_past_shared_memory(cuda, dim_arm, n_hidden, shrink):
+    """Deep ARMs, up to the most hidden layers whose f32 weights fit 227 KB
+    (55 at dim_arm 32, 806 at dim_arm 8): the first layers are staged in
+    shared memory, the rest read from global memory. Hidden weights past
+    the first are shrunk (to 0.01 and 0.001 N(0, 1)) so that the residual
+    layers stay bounded."""
+    params, gen = _arm_params(dim_arm, n_hidden, 3, cuda)
+    for layer in params["layers"][1:-1]:
+        layer["weight"] *= shrink
+    latents = [torch.round(torch.randn((1, 37, 130), generator=gen, device=cuda) * 3.0)]
+    got = ops.arm_rate_pyramid(latents, params, dim_arm, n_hidden)
+    assert_kernel_close(got, latents, params, dim_arm)
 
 
 def test_more_planes_than_one_launch_takes(cuda):
@@ -63,9 +113,7 @@ def test_more_planes_than_one_launch_takes(cuda):
     count = ops.launch_count
     got = ops.arm_rate_pyramid(latents, params, 8, 1)
     assert ops.launch_count == count + 2
-    want, _, log_scale = arm_rate_plain(latents, params, 8)
-    scale = torch.exp(torch.clamp(log_scale - 4.0, -4.6, 5.0))
-    assert torch.all((got - want).abs() <= rate_tolerance(want, scale))
+    assert_kernel_close(got, latents, params, 8)
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):
@@ -75,6 +123,9 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         ops.arm_rate(torch.zeros(4, 5, device=cuda), from_numpy_pytree(
             to_numpy_pytree(params), "cpu"), 8, 1)
+    params["layers"][0]["weight"] = params["layers"][0]["weight"].T
+    with pytest.raises(ValueError):
+        ops.arm_rate(torch.zeros(4, 5, device=cuda), params, 8, 1)
 
 
 def test_eval_forward_on_the_card_matches_the_cpu(cuda):
