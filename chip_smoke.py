@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one GPU: build, kernel checks,
-and one full-width image encode through the port's entry point.
+one full-width image encode through the port's entry point to a ``.cool``
+bitstream, and that stream decoded back.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each:
   1. build: compile every kernel of ``coolchic_tpu_torch/csrc`` with nvcc
-     (one process per source, started together).
+     and the C++ entropy / decoder library of ``cpp/`` with g++ (one process
+     per library, all started together).
   2. arm_rate kernel vs its plain PyTorch version (``models/arm.py``) for
      (dim_arm, n_hidden) in {(8,1), (16,2), (24,2), (32,2), (24,0), (24,3)}
      on planes 1x1, 5x3, 17x33 (ragged against the kernel's 16-latent
@@ -37,11 +39,26 @@ Phases, one JSON line each:
      default DecoderConfig (arm 24,2; 40-wide synthesis; 7 grids) and the
      c3x recipe of preset_cfg/c3x.yaml, iteration counts cut (printed),
      through ``coolchic_tpu_torch.encode.encode_one_run``: warm-up 5 -> 2
-     candidates, three phases, the full NN-quantization search. Checks that
+     candidates, three phases, the full NN-quantization search, then the
+     bitstream written to ``smoke_out/synthetic_512x768.cool`` and decoded
+     by the integer pipeline for the row's ``psnr_db``. Checks that
      every eval forward launched the kernel, that loss / PSNR / rate are
      finite, that the PSNR estimate beats the flat-mean image, and that the
      final params give the same eval loss on the card (kernel) as on the CPU
      (plain ARM).
+  4. bitstream: on that stream. The writer run again gives the same bytes
+     (timed: ``write_s``, of which ``armint_s`` in the host integer ARM and
+     ``entropy_s`` in the C++ coder). The integer decode through the one-call
+     C route and through the python-orchestrated route give the same image;
+     the decoded latents equal ``round(latent * encoder_gain)`` of the final
+     params exactly and the decoded networks equal the quantized params
+     (atol 1e-12). |decoded PSNR - estimated PSNR| < 0.1 dB and the real
+     latent bpp within 20 % of the rate the ARM kernel estimated (the limits
+     of ``utils/sanity_check.py``). The float decode on the card against the
+     float decode on the CPU: max abs difference <= 1/255 and fewer than
+     0.1 % of the samples differing; float against integer: PSNR within
+     0.1 dB and max abs difference < 8/255. Times are host seconds, each
+     stopped after a synchronise.
 Then a ``kernels`` JSON line, the card's name and power limit, and the
 final ``{"ok": true, "device": ...}`` line. Any failure raises (exit != 0).
 
@@ -138,18 +155,27 @@ def host_ms(fn, n: int = 200) -> float:
 
 
 def phase_build() -> None:
+    from coolchic_tpu_torch.bitstream.entropy import build_library
     from coolchic_tpu_torch.ops.build import CSRC_DIR, load_library
     from concurrent.futures import ThreadPoolExecutor
 
+    def timed(fn, *args):
+        t = time.perf_counter()
+        return fn(*args), time.perf_counter() - t
+
     names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        results = dict(zip(names, pool.map(load_library, names)))
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        cpp = pool.submit(timed, build_library)
+        results = dict(zip(names, pool.map(lambda n: timed(load_library, n), names)))
+        cpp_path, cpp_seconds = cpp.result()
     regs = {
         name: [line.strip() for line in log.splitlines() if "registers" in line]
-        for name, (_, log) in results.items()
+        for name, ((_, log), _) in results.items()
     }
     emit({"phase": "build", "kernels": names, "seconds": time.perf_counter() - t0,
+          "kernel_seconds": {name: sec for name, (_, sec) in results.items()},
+          "cpp_library": str(Path(cpp_path).relative_to(REPO)), "cpp_library_seconds": cpp_seconds,
           "ptxas": regs})
 
 
@@ -316,8 +342,9 @@ def synthetic_image(h: int, w: int):
     return np.clip(img, 0.0, 1.0).astype(np.float32)
 
 
-def phase_main_path() -> int:
-    """Encode through the entry point; returns the kernel launches it made."""
+def phase_main_path():
+    """Encode through the entry point to a bitstream; returns the kernel
+    launches it made, the run, its config, the image and the stream's path."""
     from dataclasses import replace
 
     import numpy as np
@@ -358,7 +385,10 @@ def phase_main_path() -> int:
     emit({"phase": "main_path_config", "img_size": [IMG_H, IMG_W], "dec_cfg": vars(dec),
           "candidates": [wp.candidates for wp in enc.recipe.warmup.phases], "reduced": reductions})
 
-    run_cfg = RunConfig(input=path, lmbda=1e-3, workdir=OUT_DIR, enc_cfg=enc, dec_cfg=dec)
+    cool = OUT_DIR / "synthetic_512x768.cool"
+    cool.unlink(missing_ok=True)
+    run_cfg = RunConfig(input=path, lmbda=1e-3, workdir=OUT_DIR, output=cool, enc_cfg=enc,
+                        dec_cfg=dec)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ar.launch_count = 0
@@ -371,7 +401,7 @@ def phase_main_path() -> int:
     if launches != stats.n_eval_forwards * launches_per_forward:
         raise AssertionError(f"{launches} kernel launches for {stats.n_eval_forwards} eval forwards")
     row = run.row
-    for k in ("loss", "psnr_db_estimate", "rate_latent_bpp", "rate_nn_bpp"):
+    for k in ("loss", "psnr_db_estimate", "rate_latent_bpp", "rate_nn_bpp", "rate_bpp", "psnr_db"):
         if not math.isfinite(row[k]):
             raise AssertionError(f"{k} is not finite: {row[k]}")
     flat_psnr = -10.0 * math.log10(float(np.mean((img - img.mean(axis=(1, 2), keepdims=True)) ** 2)))
@@ -408,7 +438,128 @@ def phase_main_path() -> int:
         "card_vs_cpu_eval": cross,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     })
-    return launches
+    return launches, run, cfg, img, cool
+
+
+def psnr_db(a, b) -> float:
+    import numpy as np
+
+    return float(-10.0 * np.log10(float(np.mean((a - b) ** 2)) + 1e-12))
+
+
+def phase_bitstream(run, cfg, img, cool: Path) -> None:
+    """The stream the main path wrote: written again (timed), decoded by the
+    integer pipeline on both routes and by the float pipeline on the card and
+    on the CPU. Raises on any miss."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.bitstream import decode_bitstream, encode_image_bitstream
+    from coolchic_tpu_torch.bitstream.decode import _ups_syn_float
+    from coolchic_tpu_torch.params import to_numpy_pytree
+
+    def clock() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    data = cool.read_bytes()
+    if data != run.bitstream:
+        raise AssertionError("the file written by --output is not the run's bitstream")
+    row, infos = run.row, run.infos
+    if row["rate_bpp"] != 8 * len(data) / cfg.n_pixels:
+        raise AssertionError(f"rate_bpp {row['rate_bpp']} is not the file's {len(data)} bytes")
+
+    # The writer again, timed.
+    q_step = {m: {"weight": float(i.q_step_w), "bias": float(i.q_step_b)} for m, i in infos.items()}
+    expgol = {m: {"weight": int(i.expgol_w), "bias": int(i.expgol_b)} for m, i in infos.items()}
+    parts = {}
+    t0 = clock()
+    again = encode_image_bitstream(run.result.params, cfg, q_step, expgol, timings=parts)
+    write_s = clock() - t0
+    if again != data:
+        raise AssertionError("writing the same params twice gave different bytes")
+
+    # Integer pipeline: the one-call C route, then the python-orchestrated one.
+    t0 = clock()
+    img_c, info_c = decode_bitstream(data, integer_pipeline=True)
+    decode_int_s = clock() - t0
+    if "timings" not in info_c:
+        raise AssertionError("the integer decode did not take the one-call C route")
+    t0 = clock()
+    img_py, info = decode_bitstream(data, integer_pipeline=True, full_info=True)
+    decode_int_python_s = clock() - t0
+    if not np.array_equal(img_py.astype(np.float32), img_c):
+        raise AssertionError("the C route and the python route decode different images")
+    params = to_numpy_pytree(run.result.params)
+    for got, lat in zip(info["latents"], params["latents"]):
+        if not np.array_equal(got, np.round(lat.astype(np.float64) * cfg.encoder_gain)):
+            raise AssertionError("decoded latents are not round(latent * encoder_gain)")
+    net_err = 0.0
+    for module in ("arm", "synthesis"):
+        for got, want in zip(info["params"][module]["layers"], params[module]["layers"]):
+            for k in ("weight", "bias"):
+                net_err = max(net_err, float(np.abs(got[k] - want[k]).max()))
+    for key in ("ups", "preconcat"):
+        for got, want in zip(info["params"]["upsampling"][key], params["upsampling"][key]):
+            net_err = max(net_err, float(np.abs(got - want).max()))
+    if net_err > 1e-12:
+        raise AssertionError(f"decoded networks differ from the quantized params by {net_err}")
+
+    # Estimate against the real stream (the limits of utils/sanity_check.py).
+    psnr_int = psnr_db(img_c, img)
+    if abs(psnr_int - row["psnr_db"]) > 1e-9:
+        raise AssertionError(f"row psnr_db {row['psnr_db']} vs decoded {psnr_int}")
+    if abs(row["psnr_db"] - row["psnr_db_estimate"]) >= 0.1:
+        raise AssertionError(f"decoded PSNR {row['psnr_db']} vs estimate {row['psnr_db_estimate']}")
+    fh, gop = info["frame_header"], info["gop_header"]
+    n_bytes = {
+        "headers": gop.n_bytes_header + fh.n_bytes_header,
+        "nn": sum(n for m in fh.n_bytes_nn.values() for n in m.values()),
+        "latents": sum(fh.n_bytes_per_latent),
+    }
+    if sum(n_bytes.values()) != len(data):
+        raise AssertionError(f"{n_bytes} does not add up to {len(data)} bytes")
+    real_latent_bpp = 8 * n_bytes["latents"] / cfg.n_pixels
+    est = row["rate_latent_bpp"]
+    if est > 0.05 and abs(real_latent_bpp - est) / est >= 0.2:
+        raise AssertionError(f"real latent rate {real_latent_bpp} bpp vs estimate {est}")
+
+    # Float pipeline: on the card (once to warm up, then timed) and on the CPU.
+    decode_bitstream(data, device="cuda")
+    t0 = clock()
+    img_card, _ = decode_bitstream(data, device="cuda")
+    decode_float_card_s = clock() - t0
+    t0 = clock()
+    _ups_syn_float(info["params"], info["latents"], cfg, gop.bitdepth, torch.device("cuda"))
+    ups_syn_float_card_s = clock() - t0
+    t0 = clock()
+    img_cpu, _ = decode_bitstream(data, device="cpu")
+    decode_float_cpu_s = clock() - t0
+    diff = np.abs(img_card.astype(np.float64) - img_cpu)
+    card_vs_cpu = {"max_abs_diff_255": 255.0 * float(diff.max()),
+                   "share_differing": float((diff > 0).mean())}
+    if diff.max() > 1.0 / 255.0 + 1e-7 or card_vs_cpu["share_differing"] >= 1e-3:
+        raise AssertionError(f"float decode on the card vs on the CPU: {card_vs_cpu}")
+    psnr_float = psnr_db(img_card, img)
+    float_vs_int_255 = 255.0 * float(np.abs(img_card - img_c).max())
+    if abs(psnr_float - psnr_int) >= 0.1 or float_vs_int_255 >= 8.0:
+        raise AssertionError(f"float decode {psnr_float} dB vs integer {psnr_int} dB, "
+                             f"max diff {float_vs_int_255}/255")
+
+    emit({
+        "phase": "bitstream",
+        "n_bytes": len(data), "n_bytes_split": n_bytes,
+        "rate_bpp": row["rate_bpp"], "real_latent_bpp": real_latent_bpp,
+        "rate_latent_bpp_estimate": est,
+        "psnr_db": psnr_int, "psnr_db_estimate": row["psnr_db_estimate"],
+        "psnr_db_float_card": psnr_float, "float_vs_int_max_abs_diff_255": float_vs_int_255,
+        "float_card_vs_cpu": card_vs_cpu, "decoded_networks_max_abs_err": net_err,
+        "write_s": write_s, "armint_s": parts["armint_s"], "entropy_s": parts["entropy_s"],
+        "decode_int_s": decode_int_s, "decode_int_c_timings": info_c["timings"],
+        "decode_int_python_s": decode_int_python_s,
+        "decode_float_card_s": decode_float_card_s, "ups_syn_float_card_s": ups_syn_float_card_s,
+        "decode_float_cpu_s": decode_float_cpu_s,
+    })
 
 
 def main() -> int:
@@ -428,7 +579,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     pyramid = phase_kernel_checks()
-    launches = phase_main_path()
+    launches, run, cfg, img, cool = phase_main_path()
+    phase_bitstream(run, cfg, img, cool)
     emit({"kernels": [{
         "name": "arm_rate",
         "route": "cuda",

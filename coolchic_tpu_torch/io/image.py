@@ -1,17 +1,24 @@
-"""Image I/O for the port: PNG and PPM (8-16 bit) into [3, H, W] float.
+"""Image I/O for the port: PNG and PPM (8-16 bit) into [3, H, W] float, and
+planar YUV (420 / 444) files.
 
-Counterpart of the RGB part of ``coolchic_tpu/io/image.py``; YUV waits for
-the video slice.
+Counterpart of ``coolchic_tpu/io/image.py``. The encoder reads RGB only
+(``load_frame_data_from_file``); the YUV functions serve the decoder, which
+writes the frames of a decoded video stream.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import re
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple, Union
 
 import numpy as np
+
+
+# A 420 frame is {"y": [1,H,W], "u": [1,H/2,W/2], "v": ...}; else [3, H, W].
+FrameArray = Union[np.ndarray, Dict[str, np.ndarray]]
 
 
 @dataclass
@@ -31,6 +38,14 @@ def read_png(file_path: str) -> Tuple[np.ndarray, int]:
 
     img = np.asarray(Image.open(file_path).convert("RGB"), np.float32) / 255.0
     return img.transpose(2, 0, 1), 8
+
+
+def write_png(data: np.ndarray, file_path: str) -> None:
+    """Write [3, H, W] data in [0, 1] to an 8-bit PNG."""
+    from PIL import Image
+
+    arr = np.round(np.clip(data, 0, 1) * 255.0).astype(np.uint8).transpose(1, 2, 0)
+    Image.fromarray(arr).save(file_path)
 
 
 def read_ppm(file_path: str) -> Tuple[np.ndarray, int]:
@@ -59,12 +74,76 @@ def write_ppm(data: np.ndarray, bitdepth: int, file_path: str) -> None:
         f.write(interleaved.tobytes())
 
 
+def parse_yuv_size(file_path: str) -> Tuple[int, int]:
+    """Width, height from names like seq_1920x1080_25fps_..._8b.yuv
+    (reference: format/yuv.py:74-79)."""
+    w, h = os.path.basename(file_path).split(".")[0].split("_")[1].split("x")
+    return int(w), int(h)
+
+
+def read_yuv(file_path: str, frame_idx: int, frame_data_type: str, bit_depth: int) -> FrameArray:
+    """Read frame ``frame_idx`` of a planar YUV file (8 bit, or 16-bit
+    little-endian samples above; reference: format/yuv.py:42-125)."""
+    w, h = parse_yuv_size(file_path)
+    if frame_data_type == "yuv420":
+        w_uv, h_uv = w // 2, h // 2
+    else:
+        w_uv, h_uv = w, h
+    byte_per_value = 1 if bit_depth == 8 else 2
+    n_val_y, n_val_uv = h * w, h_uv * w_uv
+    n_val = n_val_y + 2 * n_val_uv
+    raw = np.memmap(
+        file_path,
+        mode="r",
+        shape=n_val,
+        offset=n_val * byte_per_value * frame_idx,
+        dtype=np.uint16 if bit_depth > 8 else np.uint8,
+    ).astype(np.float32)
+    norm = 2.0**bit_depth - 1.0
+    y = raw[:n_val_y].reshape(1, h, w) / norm
+    u = raw[n_val_y : n_val_y + n_val_uv].reshape(1, h_uv, w_uv) / norm
+    v = raw[n_val_y + n_val_uv :].reshape(1, h_uv, w_uv) / norm
+    if frame_data_type == "yuv420":
+        return {"y": y, "u": u, "v": v}
+    return np.concatenate([y, u, v], axis=0)
+
+
+def write_yuv(
+    data: FrameArray, bitdepth: int, frame_data_type: str, file_path: str, norm: bool = True
+) -> None:
+    """Append one frame to a planar YUV file (reference: format/yuv.py:129-174)."""
+    if frame_data_type == "yuv420":
+        raw = np.concatenate([data[k].reshape(-1) for k in ("y", "u", "v")])
+    else:
+        raw = np.asarray(data).reshape(-1)
+    if norm:
+        raw = raw * (2.0**bitdepth - 1.0)
+    dtype = np.uint16 if bitdepth > 8 else np.uint8
+    with open(file_path, "ab") as f:
+        f.write(np.round(raw).astype(dtype).tobytes())
+
+
+def convert_444_to_420(yuv444: np.ndarray) -> Dict[str, np.ndarray]:
+    """Nearest-neighbor chroma downsampling: the top-left sample of each 2x2
+    block (reference: format/yuv.py:277-300)."""
+    if yuv444.shape[0] != 3:
+        raise ValueError(f"expected [3, H, W], found {yuv444.shape}")
+    return {"y": yuv444[0:1], "u": yuv444[1:2, ::2, ::2], "v": yuv444[2:3, ::2, ::2]}
+
+
+def convert_420_to_444(yuv420: Dict[str, np.ndarray]) -> np.ndarray:
+    """Nearest-neighbor chroma upsampling (reference: format/yuv.py:303-317)."""
+    u = np.repeat(np.repeat(yuv420["u"], 2, axis=-2), 2, axis=-1)
+    v = np.repeat(np.repeat(yuv420["v"], 2, axis=-2), 2, axis=-1)
+    return np.concatenate([yuv420["y"], u, v], axis=0)
+
+
 def load_frame_data_from_file(file_path: str) -> FrameData:
-    """Load an RGB frame from .png or .ppm."""
+    """Load an RGB frame from .png or .ppm (the encoder's input)."""
     if file_path.endswith(".png"):
         data, bitdepth = read_png(file_path)
     elif file_path.endswith(".ppm"):
         data, bitdepth = read_ppm(file_path)
     else:
-        raise ValueError(f"Expected .png or .ppm (YUV waits for the video slice), found {file_path}")
+        raise ValueError(f"Expected .png or .ppm (.yuv inputs wait for video encoding), found {file_path}")
     return FrameData(bitdepth, "rgb", data)

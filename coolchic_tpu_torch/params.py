@@ -3,8 +3,8 @@
 A frame's parameters are nested dicts and lists of arrays (see the package
 docstring). These two functions move such a tree across the framework
 boundary without changing its structure or its bits: tests feed the JAX
-package's weights to the port this way, and the bitstream writer will take
-the port's weights back as numpy.
+package's weights to the port this way, and the bitstream writer takes the
+port's weights back as numpy.
 """
 
 from __future__ import annotations
@@ -25,12 +25,15 @@ def from_numpy_pytree(tree: Any, device: torch.device | str) -> Any:
 
 
 def to_numpy_pytree(tree: Any) -> Any:
-    """Copy every tensor leaf of ``tree`` into a numpy array."""
+    """Copy every tensor leaf of ``tree`` into a numpy array (a leaf that is
+    not a tensor is passed through ``np.asarray``)."""
     if isinstance(tree, dict):
         return {k: to_numpy_pytree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy_pytree(v) for v in tree)
-    return tree.detach().cpu().numpy()
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
 
 
 def tree_leaves(tree: Any) -> list:

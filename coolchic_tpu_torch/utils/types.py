@@ -92,6 +92,7 @@ class RunConfig:
     input: Path
     lmbda: float = 1e-3
     workdir: Optional[Path] = None
+    output: Optional[Path] = None  # the .cool bitstream
     enc_cfg: EncoderConfig = field(default_factory=EncoderConfig)
     dec_cfg: DecoderConfig = field(default_factory=DecoderConfig)
 

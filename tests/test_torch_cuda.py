@@ -1,5 +1,5 @@
 """The port on a GPU: the ARM kernel against its plain version, and the eval
-forward on the card against the CPU. Every test here needs an NVIDIA GPU
+forward and the bitstream's float decode on the card against the CPU. Every test here needs an NVIDIA GPU
 and skips without one. The file imports no JAX, so it runs where JAX is not
 installed:
 
@@ -143,3 +143,26 @@ def test_eval_forward_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(on_card.rate_latent_bpp.item(), on_cpu.rate_latent_bpp.item(),
                                rtol=1e-5)
     np.testing.assert_allclose(on_card.psnr_db.item(), on_cpu.psnr_db.item(), atol=0.01)
+
+
+@pytest.mark.parametrize("name", ["arm24_7grids", "arm16_4grids_29x37", "two_ft_fallback"])
+def test_float_decode_on_the_card_matches_the_cpu(cuda, name):
+    """A stream written from the card's tensors, decoded by the float
+    pipeline on the card and on the CPU: at most one level apart, on fewer
+    than 0.1 % of the samples; the integer pipeline (host code) within 8/255."""
+    from coolchic_tpu_torch.bitstream import decode_bitstream, encode_image_bitstream
+    from torch_bitstream_cases import case
+
+    arch, params, q_step, expgol, blk = case(name)
+    cfg = CoolChicConfig(**arch)
+    data = encode_image_bitstream(from_numpy_pytree(params, cuda), cfg, q_step, expgol,
+                                  hls_sig_blksize=blk)
+    assert data == encode_image_bitstream(from_numpy_pytree(params, "cpu"), cfg, q_step, expgol,
+                                          hls_sig_blksize=blk)
+    on_card, _ = decode_bitstream(data)  # the default device
+    on_cpu, _ = decode_bitstream(data, device="cpu")
+    diff = np.abs(on_card.astype(np.float64) - on_cpu)
+    assert diff.max() <= 1.0 / 255.0 + 1e-7 and (diff > 0).mean() < 1e-3
+    if name != "two_ft_fallback":
+        integer, _ = decode_bitstream(data, integer_pipeline=True)
+        assert np.abs(on_card - integer).max() < 8.0 / 255.0

@@ -42,7 +42,10 @@ def test_port_imports_no_jax(path):
 
 
 def test_importing_the_encoder_loads_no_jax():
-    code = ("import sys, coolchic_tpu_torch.encode, coolchic_tpu_torch.train.encode; "
+    code = ("import sys, coolchic_tpu_torch.encode, coolchic_tpu_torch.train.encode, "
+            "coolchic_tpu_torch.decode, coolchic_tpu_torch.bitstream, "
+            "coolchic_tpu_torch.bitstream.decode, coolchic_tpu_torch.bitstream.inter, "
+            "coolchic_tpu_torch.utils.sanity_check; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'coolchic_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -112,7 +115,17 @@ def _png(path, h=24, w=32):
     Image.fromarray((img * 255).astype(np.uint8)).save(path)
 
 
-def test_cli_encodes_a_png_on_the_cpu(tmp_path):
+@pytest.fixture
+def one_torch_thread():
+    """A 24x32 encode gains nothing from intra-op threads, and several test
+    processes spinning a thread per core slow each other down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_cli_encodes_a_png_on_the_cpu(tmp_path, one_torch_thread):
     from coolchic_tpu_torch.encode import main
 
     _png(tmp_path / "img.png")
@@ -125,7 +138,9 @@ def test_cli_encodes_a_png_on_the_cpu(tmp_path):
     assert header.split("\t")[:9] == ["seq_name", "lmbda", "rate_bpp", "n_pixels", "psnr_db",
                                       "psnr_db_estimate", "rate_latent_bpp", "loss",
                                       "encoding_time_sec"]
-    assert row["n_pixels"] == str(24 * 32) and row["rate_bpp"] == "nan"
+    assert row["n_pixels"] == str(24 * 32)
+    assert np.isfinite(float(row["rate_bpp"])) and float(row["rate_bpp"]) > float(row["rate_nn_bpp"])
+    assert np.isfinite(float(row["psnr_db"])) and float(row["psnr_db"]) > 15.0
     assert float(row["psnr_db_estimate"]) > 15.0 and float(row["rate_nn_bpp"]) > 0.0
     saved = np.load(workdir / "params_quantized.npz")
     assert saved["latents/0"].shape == (1, 24, 32)
@@ -133,14 +148,6 @@ def test_cli_encodes_a_png_on_the_cpu(tmp_path):
     w = saved["arm/layers/0/weight"]
     np.testing.assert_allclose(w / q, np.round(w / q), atol=1e-4)
     assert int(saved["expgol/synthesis/bias"]) in range(13)
-
-
-def test_cli_output_waits_for_the_bitstream_writer(tmp_path):
-    from coolchic_tpu_torch.encode import main
-
-    with pytest.raises(NotImplementedError, match="bitstream"):
-        main(["--input", str(tmp_path / "x.png"), "--output", str(tmp_path / "x.cool")])
-    assert not (tmp_path / "x.cool").exists()
 
 
 def test_ppm_round_trip(tmp_path):
