@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one GPU: build, kernel checks,
 one full-width image encode through the port's entry point to a ``.cool``
-bitstream, and that stream decoded back.
+bitstream, that stream decoded back, and a batch of eight full-width images
+of mixed sizes encoded at once.
 
     python3 chip_smoke.py
 
@@ -35,6 +36,16 @@ Phases, one JSON line each:
      (``bound_ms``, a floor: 3xTF32 itself misses f32 accuracy on large
      latents), f64 on the tensor cores (``bound_f64_ms``, the route taken)
      and f32 FMA on the CUDA cores (``bound_simt_ms``, the SIMT design's).
+     Then the kernel on a batch (``arm_rate_batch`` lines): B in {1, 2, 5, 8,
+     16, 40} images, every batch size the two paths below launch (their
+     warm-ups train 5, then 2 candidates per image), each image with its own
+     ARM weights and latents (seeded), at the main path's pyramid and at the
+     ragged pyramid of a 37x130 image. Each row is held to the float64 and
+     f32 plain versions as above, row by row, and the batch's one launch
+     must equal, bit for bit, B single-image launches on the same rows.
+     Timed by CUDA-graph replay, beside B times the f64 bound. Both paths
+     then fail if they launched the kernel on a batch size not checked
+     here.
   3. main path: encode a synthetic 512x768 RGB image (numpy seed 0) with the
      default DecoderConfig (arm 24,2; 40-wide synthesis; 7 grids) and the
      c3x recipe of preset_cfg/c3x.yaml, iteration counts cut (printed),
@@ -45,7 +56,8 @@ Phases, one JSON line each:
      every eval forward launched the kernel, that loss / PSNR / rate are
      finite, that the PSNR estimate beats the flat-mean image, and that the
      final params give the same eval loss on the card (kernel) as on the CPU
-     (plain ARM).
+     (plain ARM). The warm-up trains its candidates as one batch (5, then
+     2), so an eval forward of the warm-up is one launch for all of them.
   4. bitstream: on that stream. The writer run again gives the same bytes
      (timed: ``write_s``, of which ``armint_s`` in the host integer ARM and
      ``entropy_s`` in the C++ coder). The integer decode through the one-call
@@ -59,6 +71,22 @@ Phases, one JSON line each:
      0.1 % of the samples differing; float against integer: PSNR within
      0.1 dB and max abs difference < 8/255. Times are host seconds, each
      stopped after a synchronise.
+  5. batch path: ``train.encode.encode_frame_batch`` on 8 synthetic images
+     (numpy seeds 0-7) in one 512x768 buffer, default DecoderConfig, the c3x
+     recipe cut further (printed), lambda 1e-3 for the first four and 4e-3
+     for the last four, image 3 of true size 480x720 and image 7 of 512x704
+     through ``valid_hws``. Checks: one kernel launch per batched eval
+     forward; loss / PSNR / rate finite; every PSNR estimate above its
+     image's flat-mean PSNR; each row's final eval metrics on the card equal
+     to the CPU's (plain ARM) at the main path's tolerance; each full-size
+     row's stream (the writer, on that row's params and quantization infos)
+     decodes through the integer pipeline within 0.1 dB of the estimate and
+     20 % of the estimated latent rate; each smaller row's masked rate and
+     loss equal (1e-5 relative) those of the same parameters cropped to the
+     true size and run through the unbatched forward. Prints image-steps/s,
+     the stage seconds, the peak memory and, from
+     ``utils/profile_step.py``, kernels, device ms and busy share of a
+     batched step at B = 1 and B = 8.
 Then a ``kernels`` JSON line, the card's name and power limit, and the
 final ``{"ok": true, "device": ...}`` line. Any failure raises (exit != 0).
 
@@ -93,6 +121,16 @@ IMG_H, IMG_W = 512, 768
 WARMUP_MAX_ITR = 100  # c3x: 400 per warm-up phase
 PHASE_MAX_ITR = (1000, 200, 100)  # c3x: 10600 (--n_itr), 1500, 1000
 
+# The batch path: 8 images in one 512x768 buffer, two of them smaller.
+# Batch sizes of the arm_rate_batch kernel checks: those of the main path (one
+# image; 5, then 2 warm-up candidates) and of the batch path (8 images; 40,
+# then 16 candidates). Each gives an image another share of the grid.
+BATCH_SIZES = (1, 2, 5, 8, 16, 40)
+BATCH_LMBDAS = (1e-3,) * 4 + (4e-3,) * 4
+BATCH_VALID_HW = {3: (480, 720), 7: (512, 704)}  # image index -> true (H, W)
+BATCH_WARMUP_MAX_ITR = 40
+BATCH_PHASE_MAX_ITR = (300, 60, 40)
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -119,22 +157,26 @@ def time_ms(fn, n_warmup: int = 3, n_iter: int = 20, per_sample: int = 10) -> fl
     return statistics.median(times)
 
 
-def kernel_ms(latents, params, dim_arm, n_hidden, per_graph: int = 20) -> float:
+def kernel_ms(latents, params, dim_arm, n_hidden, n_images=None, per_graph: int = 20) -> float:
     """Device time of the kernel alone: ``per_graph`` launches on buffers and
     tables prepared once, captured in a CUDA graph and replayed, so that the
-    host's time per launch (which exceeds a small kernel's) is not timed."""
+    host's time per launch (which exceeds a small kernel's) is not timed.
+    With ``n_images``, latents and params have that leading axis and a
+    launch covers the batch."""
     import torch
 
     from coolchic_tpu_torch.ops import arm_rate as ar
 
-    layers = ar.layer_table(params, dim_arm, n_hidden, latents[0].device)
-    table = ar.plane_table(tuple(tuple(y.shape) for y in latents))
-    rate = torch.empty(table.n_latents, device=latents[0].device)
-    ar.launch_arm_rate(latents, rate, layers, table, dim_arm, n_hidden)
+    layers = ar.layer_table(params, dim_arm, n_hidden, latents[0].device, n_images)
+    table = ar.plane_table(tuple(tuple(y.shape[-3:]) for y in latents))
+    rate = torch.empty(((n_images,) if n_images else ()) + (table.n_latents,),
+                       device=latents[0].device)
+    args = (latents, rate, layers, table, dim_arm, n_hidden, n_images or 1)
+    ar.launch_arm_rate(*args)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(per_graph):
-            ar.launch_arm_rate(latents, rate, layers, table, dim_arm, n_hidden)
+            ar.launch_arm_rate(*args)
     return time_ms(graph.replay, per_sample=1) / per_graph
 
 
@@ -152,6 +194,19 @@ def host_ms(fn, n: int = 200) -> float:
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     return 1e3 * statistics.median(times)
+
+
+def check_batch_sizes_seen(path: str) -> dict:
+    """The kernel's launches of the path just driven, by batch size; raises
+    if one of the sizes was not held to the plain version by the
+    ``arm_rate_batch`` checks."""
+    from coolchic_tpu_torch.ops import arm_rate as ar
+
+    seen = dict(sorted(ar.launches_by_batch.items()))
+    if not set(seen) <= set(BATCH_SIZES):
+        raise AssertionError(f"{path} launched the kernel on batches of {sorted(seen)} images; "
+                             f"checked against the plain version: {BATCH_SIZES}")
+    return {str(b): n for b, n in seen.items()}
 
 
 def phase_build() -> None:
@@ -254,6 +309,75 @@ def large_latent_checks(dim_arm, n_hidden) -> dict:
             "plain_f32_max_abs_err_f64": plain_err, "n_beyond_1e-4_f64": beyond_f64}
 
 
+def arm_bounds_ms(n_latents: int, dim_arm: int, n_hidden: int) -> dict:
+    """The least times the card could take for the ARM rate of ``n_latents``
+    latents: the ARM's multiply-adds (the function's, not the padded head's)
+    at f32 accuracy; the plane read once, the rate written once."""
+    macs = n_latents * (n_hidden * dim_arm * dim_arm + 2 * dim_arm)
+    n_weights = n_hidden * (dim_arm * dim_arm + dim_arm) + 2 * dim_arm + 2
+    n_bytes = 4 * (2 * n_latents + n_weights)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = 3 * 2 * macs / PEAK_TF32_FLOPS  # 3xTF32: three products per multiply-add
+    t_f64 = 2 * macs / PEAK_F64_TENSOR_FLOPS  # the route taken: f64 mma
+    # The SIMT design's figure: f32 FMA, adds and ReLUs on the CUDA cores.
+    t_simt = n_latents * (2 * (n_hidden * dim_arm * dim_arm + 2 * dim_arm)
+                          + 2 * n_hidden * dim_arm + 2) / PEAK_F32_FLOPS
+    return {
+        "macs": macs, "bytes": n_bytes,
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_f64_ms": 1e3 * max(t_f64, t_bytes),
+        "bound_simt_ms": 1e3 * max(t_simt, t_bytes),
+    }
+
+
+def batch_kernel_checks(cfg, label: str) -> dict:
+    """The kernel on batches of B images of ``cfg``'s pyramid, each image
+    with its own ARM and latents: every row against its plain versions, the
+    one launch against B single launches (bit for bit), and its time.
+    Returns {B: ms}."""
+    import torch
+
+    from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.params import stack_params
+
+    dim_arm, n_hidden = cfg.dim_arm, cfg.n_hidden_layers_arm
+    one = arm_bounds_ms(cfg.n_latents, dim_arm, n_hidden)
+    out = {}
+    for n_images in BATCH_SIZES:
+        gen = torch.Generator("cuda").manual_seed(4321 + n_images)
+        rows = [arm_case_params(dim_arm, n_hidden, gen) for _ in range(n_images)]
+        params = stack_params(rows)
+        latents = [torch.round(torch.randn((n_images,) + s, generator=gen, device="cuda") * 3.0)
+                   for s in cfg.latent_shapes]
+        count = ar.launch_count
+        got = ar.arm_rate_pyramid_batch(latents, params, dim_arm, n_hidden)
+        if ar.launch_count != count + 1:
+            raise AssertionError(f"a batch of {n_images} took {ar.launch_count - count} launches")
+        singles = torch.stack([ar.arm_rate_pyramid([y[b] for y in latents], rows[b], dim_arm,
+                                                   n_hidden) for b in range(n_images)])
+        torch.cuda.synchronize()
+        if not torch.equal(got, singles):
+            raise AssertionError(f"the batched launch (B = {n_images}, {label}) differs from "
+                                 f"{n_images} single launches")
+        res = [compare(got[b], [y[b] for y in latents], rows[b], dim_arm)
+               for b in range(n_images)]
+        ms = kernel_ms(latents, params, dim_arm, n_hidden, n_images)
+        out[n_images] = ms
+        emit({"phase": "arm_rate_batch", "pyramid": label, "batch": n_images,
+              "n_latents_per_image": cfg.n_latents, "dim_arm": dim_arm, "n_hidden": n_hidden,
+              "equals_single_launches": True,
+              "max_abs_err": max(r["max_abs_err"] for r in res),
+              "max_abs_err_f64": max(r["max_abs_err_f64"] for r in res),
+              "n_beyond_1e-4_neither": sum(r["n_beyond_1e-4"]["neither"]
+                                           + r["n_beyond_1e-4_f64"]["neither"] for r in res),
+              "ms": ms, "ms_per_image": ms / n_images,
+              "bound_ms": n_images * one["bound_ms"], "bound_by": one["bound_by"],
+              "bound_f64_ms": n_images * one["bound_f64_ms"],
+              "share_of_bound_f64_ms": n_images * one["bound_f64_ms"] / ms})
+    return out
+
+
 def phase_kernel_checks() -> dict:
     """Kernel vs plain on single planes and on the main path's pyramid.
     Returns the pyramid numbers for the ``kernels`` line."""
@@ -299,81 +423,61 @@ def phase_kernel_checks() -> dict:
     wrapper_host_ms = host_ms(lambda: ar.arm_rate_pyramid(latents, params, dim_arm, n_hidden))
     plain_ms = time_ms(lambda: arm_rate_plain(latents, params, dim_arm))
 
-    # Bounds: the ARM's multiply-adds (the function's, not the padded head's)
-    # at f32 accuracy; the plane read once, the rate written once.
-    n = cfg.n_latents
-    macs = n * (n_hidden * dim_arm * dim_arm + 2 * dim_arm)
-    n_weights = n_hidden * (dim_arm * dim_arm + dim_arm) + 2 * dim_arm + 2
-    n_bytes = 4 * (2 * n + n_weights)
-    t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = 3 * 2 * macs / PEAK_TF32_FLOPS  # 3xTF32: three products per multiply-add
-    t_f64 = 2 * macs / PEAK_F64_TENSOR_FLOPS  # the route taken: f64 mma
-    # The SIMT design's figure: f32 FMA, adds and ReLUs on the CUDA cores.
-    t_simt = n * (2 * (n_hidden * dim_arm * dim_arm + 2 * dim_arm) + 2 * n_hidden * dim_arm + 2) \
-        / PEAK_F32_FLOPS
+    bounds = arm_bounds_ms(cfg.n_latents, dim_arm, n_hidden)
+    macs, n_bytes = bounds.pop("macs"), bounds.pop("bytes")
     out = {
         "max_abs_err": res["max_abs_err"], "ms": ms, "wrapper_ms": wrapper_ms,
-        "wrapper_host_ms": wrapper_host_ms, "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "bound_f64_ms": 1e3 * max(t_f64, t_bytes),
-        "bound_simt_ms": 1e3 * max(t_simt, t_bytes),
+        "wrapper_host_ms": wrapper_host_ms, "plain_ms": plain_ms, **bounds,
     }
     for k in ("bound_ms", "bound_f64_ms", "bound_simt_ms"):
         out["share_of_" + k] = out[k] / ms
     emit({"phase": "arm_rate_pyramid", "latent_shapes": [list(s) for s in cfg.latent_shapes],
-          "n_latents": n, "dim_arm": dim_arm, "n_hidden": n_hidden, "macs": macs,
+          "n_latents": cfg.n_latents, "dim_arm": dim_arm, "n_hidden": n_hidden, "macs": macs,
           "bytes": n_bytes, **res, **out})
+
+    batch_ms = batch_kernel_checks(cfg, f"{IMG_H}x{IMG_W}")
+    batch_kernel_checks(CoolChicConfig(img_size=(37, 130)), "37x130")
+    out["ms_batch8"] = batch_ms[8]
+    out["bound_batch8_ms"] = 8 * out["bound_f64_ms"]
+    out["ms_by_batch"] = {str(b): ms for b, ms in batch_ms.items()}
     return out
 
 
-def synthetic_image(h: int, w: int):
-    """Smooth gradients plus texture, [3, H, W] in [0, 1], numpy seed 0."""
+def synthetic_image(h: int, w: int, seed: int = 0):
+    """Smooth gradients plus texture, [3, H, W] in [0, 1], from a numpy seed
+    (the noise, and for seeds past 0 a shift of the two textures)."""
     import numpy as np
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
+    noise = rng.standard_normal((3, h, w)).astype(np.float32)
+    shift = rng.uniform(0.0, 2.0 * np.pi, 2).astype(np.float32) if seed else np.zeros(2, np.float32)
     y, x = np.mgrid[0:h, 0:w].astype(np.float32)
     img = np.stack([
         0.2 + 0.6 * x / w,
-        0.3 + 0.4 * np.sin(2 * np.pi * y / h) * np.cos(2 * np.pi * x / (0.7 * w)),
-        0.5 + 0.3 * np.sin(x / 9.0) * np.sin(y / 13.0),
+        0.3 + 0.4 * np.sin(2 * np.pi * y / h + shift[0]) * np.cos(2 * np.pi * x / (0.7 * w)),
+        0.5 + 0.3 * np.sin(x / 9.0 + shift[1]) * np.sin(y / 13.0),
     ])
-    img += 0.04 * rng.standard_normal(img.shape).astype(np.float32)
-    return np.clip(img, 0.0, 1.0).astype(np.float32)
+    return np.clip(img + 0.04 * noise, 0.0, 1.0).astype(np.float32)
 
 
-def phase_main_path():
-    """Encode through the entry point to a bitstream; returns the kernel
-    launches it made, the run, its config, the image and the stream's path."""
+def cut_recipe(warmup_max_itr: int, phase_max_itr):
+    """The c3x recipe with its iteration counts cut, as an EncoderConfig,
+    and what was cut."""
     from dataclasses import replace
 
-    import numpy as np
-    import torch
-
-    from coolchic_tpu_torch.encode import encode_one_run
-    from coolchic_tpu_torch.io.image import write_ppm
-    from coolchic_tpu_torch.ops import arm_rate as ar
-    from coolchic_tpu_torch.params import from_numpy_pytree, to_numpy_pytree
     from coolchic_tpu_torch.train.presets import Warmup, load_preset
-    from coolchic_tpu_torch.train.step import eval_metrics
-    from coolchic_tpu_torch.utils.types import DecoderConfig, EncoderConfig, RunConfig
-
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    img = synthetic_image(IMG_H, IMG_W)
-    path = OUT_DIR / "synthetic_512x768.ppm"
-    write_ppm(img, 8, str(path))
-    img = np.round(img * 255.0) / 255.0  # what the encoder reads back
+    from coolchic_tpu_torch.utils.types import EncoderConfig
 
     full = load_preset("c3x")
-    enc = EncoderConfig(std_recipe_name="c3x", n_itr=PHASE_MAX_ITR[0])  # --n_itr
+    enc = EncoderConfig(std_recipe_name="c3x", n_itr=phase_max_itr[0])  # --n_itr
     cut = enc.recipe
     enc.recipe = replace(
         cut,
         warmup=Warmup(tuple(
-            replace(wp, training_phase=replace(wp.training_phase, max_itr=WARMUP_MAX_ITR))
+            replace(wp, training_phase=replace(wp.training_phase, max_itr=warmup_max_itr))
             for wp in cut.warmup.phases)),
         all_phases=cut.all_phases[:1] + tuple(
-            replace(p, max_itr=n) for p, n in zip(cut.all_phases[1:], PHASE_MAX_ITR[1:])),
+            replace(p, max_itr=n) for p, n in zip(cut.all_phases[1:], phase_max_itr[1:])),
     )
     reductions = {
         "warmup_max_itr": [wp.training_phase.max_itr for wp in full.warmup.phases],
@@ -381,6 +485,29 @@ def phase_main_path():
         "phase_max_itr": [p.max_itr for p in full.all_phases],
         "phase_max_itr_run": [p.max_itr for p in enc.recipe.all_phases],
     }
+    return enc, reductions
+
+
+def phase_main_path():
+    """Encode through the entry point to a bitstream; returns the kernel
+    launches it made, the run, its config, the image and the stream's path."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.encode import encode_one_run
+    from coolchic_tpu_torch.io.image import write_ppm
+    from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.params import from_numpy_pytree, to_numpy_pytree
+    from coolchic_tpu_torch.train.step import eval_metrics
+    from coolchic_tpu_torch.utils.types import DecoderConfig, RunConfig
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    img = synthetic_image(IMG_H, IMG_W)
+    path = OUT_DIR / "synthetic_512x768.ppm"
+    write_ppm(img, 8, str(path))
+    img = np.round(img * 255.0) / 255.0  # what the encoder reads back
+
+    enc, reductions = cut_recipe(WARMUP_MAX_ITR, PHASE_MAX_ITR)
     dec = DecoderConfig()
     emit({"phase": "main_path_config", "img_size": [IMG_H, IMG_W], "dec_cfg": vars(dec),
           "candidates": [wp.candidates for wp in enc.recipe.warmup.phases], "reduced": reductions})
@@ -392,14 +519,17 @@ def phase_main_path():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ar.launch_count = 0
+    ar.launches_by_batch.clear()
     run = encode_one_run(run_cfg, seed=0, device="cuda")
     launches = ar.launch_count
+    launches_by_batch = check_batch_sizes_seen("the main path")
     stats = run.result.stats
 
     cfg = dec.to_coolchic_config((IMG_H, IMG_W))
     launches_per_forward = ar.plane_table(tuple(cfg.latent_shapes)).n_launches
-    if launches != stats.n_eval_forwards * launches_per_forward:
-        raise AssertionError(f"{launches} kernel launches for {stats.n_eval_forwards} eval forwards")
+    if launches != stats.n_batched_eval_forwards * launches_per_forward:
+        raise AssertionError(f"{launches} kernel launches for {stats.n_batched_eval_forwards} "
+                             "batched eval forwards")
     row = run.row
     for k in ("loss", "psnr_db_estimate", "rate_latent_bpp", "rate_nn_bpp", "rate_bpp", "psnr_db"):
         if not math.isfinite(row[k]):
@@ -432,13 +562,16 @@ def phase_main_path():
         "n_train_steps": stats.n_train_steps,
         "train_steps_per_s": stats.n_train_steps / train_s,
         "n_eval_forwards": stats.n_eval_forwards,
+        "n_batched_eval_forwards": stats.n_batched_eval_forwards,
+        "n_batched_steps": stats.n_batched_steps,
         "arm_rate_launches": launches,
+        "arm_rate_launches_by_batch": launches_by_batch,
         "launches_per_eval_forward": launches_per_forward,
         "nn_quant": {m: i._asdict() for m, i in run.infos.items()},
         "card_vs_cpu_eval": cross,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     })
-    return launches, run, cfg, img, cool
+    return launches, run, cfg, img, cool, stats.n_train_steps / train_s
 
 
 def psnr_db(a, b) -> float:
@@ -562,6 +695,152 @@ def phase_bitstream(run, cfg, img, cool: Path) -> None:
     })
 
 
+def phase_batch_path(single_steps_per_s: float) -> int:
+    """Encode 8 images of mixed sizes at once; returns the kernel launches
+    the batched encode made. Raises on any miss."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.bitstream import decode_bitstream, encode_image_bitstream
+    from coolchic_tpu_torch.models.coolchic import frame_forward
+    from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.params import from_numpy_pytree, to_numpy_pytree, unstack_params
+    from coolchic_tpu_torch.train.encode import encode_frame_batch
+    from coolchic_tpu_torch.train.loss import loss_function
+    from coolchic_tpu_torch.train.step import eval_metrics
+    from coolchic_tpu_torch.utils.profile_step import profile_batch
+    from coolchic_tpu_torch.utils.types import DecoderConfig
+
+    n_images = len(BATCH_LMBDAS)
+    dec = DecoderConfig()
+    cfg = dec.to_coolchic_config((IMG_H, IMG_W))
+    enc, reductions = cut_recipe(BATCH_WARMUP_MAX_ITR, BATCH_PHASE_MAX_ITR)
+    sizes = [BATCH_VALID_HW.get(b, (IMG_H, IMG_W)) for b in range(n_images)]
+    images = [np.round(synthetic_image(h, w, seed=b) * 255.0) / 255.0
+              for b, (h, w) in enumerate(sizes)]
+    targets = np.zeros((n_images, 3, IMG_H, IMG_W), np.float32)
+    for b, img in enumerate(images):
+        targets[b, :, : img.shape[1], : img.shape[2]] = img
+    emit({"phase": "batch_path_config", "batch": n_images, "buffer": [IMG_H, IMG_W],
+          "valid_hw": [list(hw) for hw in sizes], "lmbdas": list(BATCH_LMBDAS),
+          "dec_cfg": vars(dec), "candidates": [wp.candidates for wp in enc.recipe.warmup.phases],
+          "reduced": reductions})
+
+    targets = torch.tensor(targets, device="cuda")
+    valid_hws = torch.tensor(sizes, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ar.launch_count = 0
+    ar.launches_by_batch.clear()
+    result, infos = encode_frame_batch(
+        targets, BATCH_LMBDAS, cfg, enc.recipe, seeds=list(range(n_images)),
+        valid_hws=valid_hws, with_quant_info=True)
+    launches = ar.launch_count
+    launches_by_batch = check_batch_sizes_seen("the batch path")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    stats = result.stats
+
+    launches_per_forward = ar.plane_table(tuple(cfg.latent_shapes)).n_launches
+    if launches != stats.n_batched_eval_forwards * launches_per_forward:
+        raise AssertionError(f"{launches} kernel launches for {stats.n_batched_eval_forwards} "
+                             "batched eval forwards")
+    for name in ("loss", "psnr_db", "rate_latent_bpp"):
+        values = getattr(result, name)
+        if tuple(values.shape) != (n_images,) or not torch.isfinite(values).all():
+            raise AssertionError(f"{name} is not {n_images} finite values: {values}")
+    flat_psnr = [psnr_db(img, img.mean(axis=(1, 2), keepdims=True)) for img in images]
+    for b in range(n_images):
+        if not result.psnr_db[b].item() > flat_psnr[b]:
+            raise AssertionError(f"image {b}: PSNR {result.psnr_db[b]} <= flat-mean {flat_psnr[b]}")
+
+    rows = unstack_params(result.params)
+    per_image = []
+    for b, params in enumerate(rows):
+        lmbda, full_size = BATCH_LMBDAS[b], b not in BATCH_VALID_HW
+        nn_bits = sum(i.rate_bits for i in infos[b].values())
+        line = {"image": b, "valid_hw": list(sizes[b]), "lmbda": lmbda,
+                "loss": result.loss[b].item(), "psnr_db_estimate": result.psnr_db[b].item(),
+                "rate_latent_bpp": result.rate_latent_bpp[b].item(),
+                "flat_mean_psnr_db": flat_psnr[b]}
+
+        # The row's final params on the card (ARM kernel) and on the CPU (plain ARM).
+        m_gpu = eval_metrics(params, cfg, targets[b], lmbda, valid_hw=valid_hws[b])
+        m_cpu = eval_metrics(from_numpy_pytree(to_numpy_pytree(params), "cpu"), cfg,
+                             targets[b].cpu(), lmbda, valid_hw=valid_hws[b].cpu())
+        cross = {k: (getattr(m_gpu, k).item(), getattr(m_cpu, k).item())
+                 for k in ("loss", "psnr_db", "rate_latent_bpp")}
+        bpp = cross["rate_latent_bpp"]
+        if abs(bpp[0] - bpp[1]) > 1e-4 * bpp[1] or abs(cross["psnr_db"][0] - cross["psnr_db"][1]) > 0.01:
+            raise AssertionError(f"image {b}: card and CPU differ: {cross}")
+        line["card_vs_cpu_eval"] = cross
+
+        if full_size:
+            # The writer on this row, with this row's quantization choices.
+            q_step = {m: {"weight": i.q_step_w, "bias": i.q_step_b} for m, i in infos[b].items()}
+            expgol = {m: {"weight": i.expgol_w, "bias": i.expgol_b} for m, i in infos[b].items()}
+            data = encode_image_bitstream(params, cfg, q_step, expgol)
+            decoded, info = decode_bitstream(data, integer_pipeline=True, full_info=True)
+            psnr_int = psnr_db(decoded.astype(np.float32), images[b])
+            real_latent_bpp = 8 * sum(info["frame_header"].n_bytes_per_latent) / cfg.n_pixels
+            est = line["rate_latent_bpp"]
+            if abs(psnr_int - line["psnr_db_estimate"]) >= 0.1:
+                raise AssertionError(f"image {b}: decoded PSNR {psnr_int} vs estimate {line}")
+            if est > 0.05 and abs(real_latent_bpp - est) / est >= 0.2:
+                raise AssertionError(f"image {b}: real latent rate {real_latent_bpp} vs {line}")
+            line.update({"n_bytes": len(data), "psnr_db": psnr_int, "rate_nn_bits": nn_bits,
+                         "real_latent_bpp": real_latent_bpp})
+        else:
+            # The same parameters cropped to the true size, unbatched and unmasked.
+            h, w = sizes[b]
+            small = dec.to_coolchic_config((h, w))
+            cropped = dict(params)
+            cropped["latents"] = [y[:, :sh, :sw].contiguous() for y, (_, sh, sw)
+                                  in zip(params["latents"], small.latent_shapes)]
+            with torch.no_grad():
+                dec_s, rate_s, _ = frame_forward(cropped, small, training=False)
+                dec_b, rate_b, _ = frame_forward(params, cfg, training=False, valid_hw=valid_hws[b])
+                l_s = loss_function(dec_s, rate_s, targets[b, :, :h, :w], lmbda)
+                l_b = loss_function(dec_b, rate_b, targets[b], lmbda, valid_hw=valid_hws[b])
+            diff = (dec_b[:, :h, :w] - dec_s).abs()
+            masked = {"rate_bits": (rate_b.sum().item(), rate_s.sum().item()),
+                      "loss": (l_b.loss.item(), l_s.loss.item()),
+                      "decoded_max_abs_diff_255": 255.0 * diff.max().item(),
+                      "decoded_share_differing": (diff > 0).float().mean().item()}
+            for k in ("rate_bits", "loss"):
+                if abs(masked[k][0] - masked[k][1]) > 1e-5 * abs(masked[k][1]):
+                    raise AssertionError(f"image {b}: masked vs cropped {k}: {masked}")
+            if masked["decoded_max_abs_diff_255"] > 1.0 + 1e-4 or masked["decoded_share_differing"] >= 1e-3:
+                raise AssertionError(f"image {b}: masked vs cropped image: {masked}")
+            line["masked_vs_cropped"] = masked
+        per_image.append(line)
+
+    train_s = sum(v for k, v in stats.stage_seconds.items() if not k.startswith("quantize"))
+    emit({
+        "phase": "batch_path",
+        "batch": n_images,
+        "images": per_image,
+        "stage_seconds": stats.stage_seconds,
+        "encode_seconds": sum(stats.stage_seconds.values()),
+        "n_train_steps": stats.n_train_steps,
+        "n_batched_steps": stats.n_batched_steps,
+        "image_steps_per_s": stats.n_train_steps / train_s,
+        "single_image_train_steps_per_s": single_steps_per_s,
+        "n_eval_forwards": stats.n_eval_forwards,
+        "n_batched_eval_forwards": stats.n_batched_eval_forwards,
+        "arm_rate_launches": launches,
+        "arm_rate_launches_by_batch": launches_by_batch,
+        "launches_per_batched_eval_forward": launches_per_forward,
+        "max_memory_allocated_bytes": peak_bytes,
+    })
+    profiles = {b: profile_batch(b) for b in (1, n_images)}
+    emit({"phase": "batch_step_profile", **{
+        f"{what}_b{b}": {k: lines[what][k] for k in (
+            "wall_ms", "device_ms_per_iter", "kernels_per_iter", "device_busy_share",
+            "profile_complete", "max_memory_allocated_bytes")}
+        for b, lines in profiles.items() for what in lines}})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -579,14 +858,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     pyramid = phase_kernel_checks()
-    launches, run, cfg, img, cool = phase_main_path()
+    launches, run, cfg, img, cool, single_steps_per_s = phase_main_path()
     phase_bitstream(run, cfg, img, cool)
+    batch_launches = phase_batch_path(single_steps_per_s)
     emit({"kernels": [{
         "name": "arm_rate",
         "route": "cuda",
         "source": "coolchic_tpu_torch/csrc/arm_rate.cu",
         "replaces": "coolchic_tpu/ops/pallas_arm.py:86",
-        "launches": launches,
+        "launches": launches + batch_launches,
+        "launches_main_path": launches,
+        "launches_batch_path": batch_launches,
         "max_abs_err": pyramid["max_abs_err"],
         "ms": pyramid["ms"],
         "plain_ms": pyramid["plain_ms"],
@@ -595,6 +877,9 @@ def main() -> int:
         "bound_f64_ms": pyramid["bound_f64_ms"],
         "bound_simt_ms": pyramid["bound_simt_ms"],
         "wrapper_ms": pyramid["wrapper_ms"],
+        "ms_batch8": pyramid["ms_batch8"],
+        "bound_batch8_ms": pyramid["bound_batch8_ms"],
+        "ms_by_batch": pyramid["ms_by_batch"],
         "library_ms": None,  # no single PyTorch call computes this function
     }], "seconds": time.perf_counter() - t0})
     smi = subprocess.run(

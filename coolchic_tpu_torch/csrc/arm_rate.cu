@@ -10,7 +10,9 @@
 //   CDF(v) = 1/2 - 1/2 sign(v - mu) expm1(-|v - mu| / scale),
 //   scale = exp(clamp(log_scale - 4, -4.6, 5)).
 // Each plane is read where it lies and the rate written once; the
-// [M, dim_arm] context matrix of the plain version never exists.
+// [M, dim_arm] context matrix of the plain version never exists. One launch
+// covers a batch of images, each with its own ARM: image b's planes, weights
+// and rates lie at the tables' addresses plus b times a stride.
 //
 // What bounds it: per latent, n_hidden * C^2 + 2 C multiply-adds against 8
 // bytes of traffic (C = dim_arm), far above the card's balance point, so the
@@ -46,6 +48,11 @@
 //    current one (two buffers), so a slow warp stalls no other.
 //  * Context offsets are compile-time constants per dim_arm; an item finds
 //    its plane by binary search in a table the block loads once.
+//  * A batch is the grid's second dimension: the blocks of row b stage
+//    image b's weights and its plane table (the launch's table moved by b
+//    strides) and walk image b's items; each image gets an equal share of
+//    the blocks the card holds at once. After the staging nothing knows of
+//    the batch, so one image runs as it did before there was one.
 // No fast-math: expf, expm1f and log2f stay IEEE-accurate.
 
 #include <cuda_runtime.h>
@@ -82,18 +89,25 @@ __host__ __device__ constexpr int ctx_offset(int C, int k) {
   return tab[C / 8 - 1][k] / 9 * kHaloW + tab[C / 8 - 1][k] % 9;
 }
 
+// Plane i of image b is ptr[i] + b * stride[i] and its rates start at
+// rate + b * rate_stride + offset[i]: one table serves the whole batch.
 struct PlaneTable {
   const float* ptr[kMaxPlanes];
-  long long offset[kMaxPlanes];  // into the flat rate
+  long long offset[kMaxPlanes];  // into an image's flat rate
+  long long stride[kMaxPlanes];  // floats from an image's plane to the next image's
+  long long rate_stride;         // floats from an image's rates to the next image's
   int h[kMaxPlanes];
   int w[kMaxPlanes];
   int first_item[kMaxPlanes];
   int n_planes;
-  int n_items;
+  int n_items;   // of one image
+  int n_images;
 };
 
 // Hidden layer l: w[l] is [C, C] (out-major), b[l] is [C]; the head is
-// w[n_hidden] [2, C], b[n_hidden] [2]. 16 KB of kernel parameters: sm_90
+// w[n_hidden] [2, C], b[n_hidden] [2]. In a batch each is the first image's
+// and the images follow one another densely ([B, C, C], [B, C], [B, 2, C],
+// [B, 2]), so their strides are the shapes'. 16 KB of kernel parameters: sm_90
 // takes up to 32 KB (CUDA 12.1 on), and on an H100 a table of 8 entries
 // made the kernel no faster.
 struct LayerTable {
@@ -101,9 +115,11 @@ struct LayerTable {
   const float* b[kMaxHidden + 1];
 };
 
+// The planes of the image a block works on: the table's entries moved to
+// that image.
 struct SmemPlanes {
   const float* ptr[kMaxPlanes];
-  long long offset[kMaxPlanes];
+  long long offset[kMaxPlanes];  // into the whole batch's rates
   int h[kMaxPlanes];
   int w[kMaxPlanes];
   int first_item[kMaxPlanes];
@@ -236,35 +252,39 @@ arm_rate_kernel(float* __restrict__ rate, PlaneTable table, LayerTable layers, i
   const int g = lane >> 2, t = lane & 3;
 
   // Everything a block reads once, in one loop so that the loads overlap:
-  // the plane table; fragment (l, j, n, lane) of each staged layer,
-  // W'[8n + g][8j + 2t] and W'[8n + g][8j + 2t + 1] (k positions t and t + 4
-  // of k-step j) with W' = W + I, the residual x folded into the product
-  // (exactly, in f64); the biases; the head's fragments, N padded from 2 to
-  // 8 with zeros; the head's bias.
-  const int n_frag = n_smem * KS * KS * 32, n_bias = n_smem * C, n_head = KS * 32;
-  const int n_stage = table.n_planes + n_frag + n_bias + n_head + 2;
-  for (int i = tid; i < n_stage; i += kThreads) {
-    int k = i;
-    if (k < table.n_planes) {
-      planes.ptr[k] = table.ptr[k];
-      planes.offset[k] = table.offset[k];
-      planes.h[k] = table.h[k];
-      planes.w[k] = table.w[k];
-      planes.first_item[k] = table.first_item[k];
-    } else if ((k -= table.n_planes) < n_frag) {
-      const int ln = k & 31, rest = k >> 5;
-      const int n = rest % KS, j = (rest / KS) % KS, l = rest / (KS * KS);
-      const int row = 8 * n + (ln >> 2), col = 8 * j + 2 * (ln & 3);
-      const float* w = layers.w[l] + row * C + col;
-      frag[k] = make_double2(w[0] + (row == col ? 1.0 : 0.0), w[1] + (row == col + 1 ? 1.0 : 0.0));
-    } else if ((k -= n_frag) < n_bias) {
-      bias[k] = layers.b[k / C][k % C];
-    } else if ((k -= n_bias) < n_head) {
-      const int ln = k & 31, j = k >> 5, n = ln >> 2;
-      const float* w = layers.w[n_hidden] + n * C + 8 * j + 2 * (ln & 3);
-      head[k] = n < 2 ? make_double2(w[0], w[1]) : make_double2(0.0, 0.0);
-    } else {
-      head_bias[k - n_head] = layers.b[n_hidden][k - n_head];
+  // the plane table, moved to this block's image; fragment (l, j, n, lane)
+  // of each staged layer, W'[8n + g][8j + 2t] and W'[8n + g][8j + 2t + 1]
+  // (k positions t and t + 4 of k-step j) with W' = W + I, the residual x
+  // folded into the product (exactly, in f64); the biases; the head's
+  // fragments, N padded from 2 to 8 with zeros; the head's bias.
+  {
+    const long long img = blockIdx.y;
+    const int n_frag = n_smem * KS * KS * 32, n_bias = n_smem * C, n_head = KS * 32;
+    const int n_stage = table.n_planes + n_frag + n_bias + n_head + 2;
+    for (int i = tid; i < n_stage; i += kThreads) {
+      int k = i;
+      if (k < table.n_planes) {
+        planes.ptr[k] = table.ptr[k] + img * table.stride[k];
+        planes.offset[k] = table.offset[k] + img * table.rate_stride;
+        planes.h[k] = table.h[k];
+        planes.w[k] = table.w[k];
+        planes.first_item[k] = table.first_item[k];
+      } else if ((k -= table.n_planes) < n_frag) {
+        const int ln = k & 31, rest = k >> 5;
+        const int n = rest % KS, j = (rest / KS) % KS, l = rest / (KS * KS);
+        const int row = 8 * n + (ln >> 2), col = 8 * j + 2 * (ln & 3);
+        const float* w = layers.w[l] + img * (C * C) + row * C + col;
+        frag[k] = make_double2(w[0] + (row == col ? 1.0 : 0.0),
+                               w[1] + (row == col + 1 ? 1.0 : 0.0));
+      } else if ((k -= n_frag) < n_bias) {
+        bias[k] = layers.b[k / C][img * C + k % C];
+      } else if ((k -= n_bias) < n_head) {
+        const int ln = k & 31, j = k >> 5, n = ln >> 2;
+        const float* w = layers.w[n_hidden] + img * (2 * C) + n * C + 8 * j + 2 * (ln & 3);
+        head[k] = n < 2 ? make_double2(w[0], w[1]) : make_double2(0.0, 0.0);
+      } else {
+        head_bias[k - n_head] = layers.b[n_hidden][img * 2 + k - n_head];
+      }
     }
   }
 
@@ -364,8 +384,9 @@ arm_rate_kernel(float* __restrict__ rate, PlaneTable table, LayerTable layers, i
                 x, [&](int j, int n) { return fl[(j * KS + n) * 32]; },
                 [&](int n) { return *reinterpret_cast<const double2*>(bl + 8 * n); });
           } else {  // past shared memory: read the layer where it lies
-            const float* wl = layers.w[l] + g * C + 2 * t;
-            const float* bg = layers.b[l] + 2 * t;
+            const long long img = blockIdx.y;
+            const float* wl = layers.w[l] + img * (C * C) + g * C + 2 * t;
+            const float* bg = layers.b[l] + img * C + 2 * t;
             hidden_layer<C, kM>(
                 x,
                 [&](int j, int n) {
@@ -470,10 +491,14 @@ cudaError_t launch(float* rate, const PlaneTable& table, const LayerTable& layer
     }
     max_blocks = info.occ_blocks * info.n_sm;
   }
+  // Blocks of one image: as many as its items ask for, within an equal share
+  // of the blocks the card holds at once (past that many images, one each:
+  // the rows then take their turn on the card).
   const int wanted = (table.n_items + kWarps - 1) / kWarps;
-  const int n_blocks = wanted < max_blocks ? wanted : max_blocks;
-  arm_rate_kernel<C><<<n_blocks, kThreads, smem, stream>>>(rate, table, layers, n_hidden,
-                                                           n_smem);
+  int per_image = max_blocks / table.n_images;
+  per_image = per_image < 1 ? 1 : (per_image > wanted ? wanted : per_image);
+  arm_rate_kernel<C><<<dim3(per_image, table.n_images), kThreads, smem, stream>>>(
+      rate, table, layers, n_hidden, n_smem);
   return cudaGetLastError();
 }
 
@@ -484,22 +509,30 @@ extern "C" void arm_rate_limits(int* max_planes, int* max_hidden) {
   *max_hidden = kMaxHidden;
 }
 
-// Rates of n_planes planes (at most kMaxPlanes) in one launch. plane_ptr[i]
-// is plane i ([h, w], row-major f32) and its rate goes to rate +
-// plane_offset[i]. layer_ptr holds weight, bias of each hidden layer, then of
-// the head. Returns the CUDA error code of the launch (0 on success).
+// Rates of n_planes planes (at most kMaxPlanes) of each of n_images images
+// in one launch. plane_ptr[i] is plane i of the first image ([h, w],
+// row-major f32), the same plane of image b lies plane_stride[i] * b floats
+// further, and its rate goes to rate + b * rate_stride + plane_offset[i].
+// layer_ptr holds weight, bias of each hidden layer, then of the head, each
+// the first image's of a dense [n_images, ...] tensor. Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int arm_rate_launch(float* rate, const float* const* plane_ptr, const int* plane_h,
                                const int* plane_w, const long long* plane_offset,
-                               int n_planes, const float* const* layer_ptr, int n_hidden,
-                               int dim_arm, void* stream) {
-  if (n_planes < 1 || n_planes > kMaxPlanes || n_hidden < 0 || n_hidden > kMaxHidden)
+                               const long long* plane_stride, int n_planes,
+                               const float* const* layer_ptr, int n_hidden, int dim_arm,
+                               int n_images, long long rate_stride, void* stream) {
+  if (n_planes < 1 || n_planes > kMaxPlanes || n_hidden < 0 || n_hidden > kMaxHidden ||
+      n_images < 1 || n_images > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   PlaneTable table = {};
   table.n_planes = n_planes;
+  table.n_images = n_images;
+  table.rate_stride = rate_stride;
   int n_items = 0;
   for (int i = 0; i < n_planes; ++i) {
     table.ptr[i] = plane_ptr[i];
     table.offset[i] = plane_offset[i];
+    table.stride[i] = plane_stride[i];
     table.h[i] = plane_h[i];
     table.w[i] = plane_w[i];
     table.first_item[i] = n_items;

@@ -5,6 +5,13 @@ Usage:
     python -m coolchic_tpu_torch.encode --input img.png --output img.cool \\
         --lmbda 1e-3 --enc_preset c3x --n_itr 10000 \\
         --dec_cfg cfg/dec/hop.yaml --workdir out/ [--device cuda]
+    python -m coolchic_tpu_torch.encode --config runs.yaml [--device cuda]
+
+``--config`` names a ``UserConfig`` YAML (``utils/types.py``): ``input``,
+``lmbda`` and ``dec_cfg`` each a value or a list, expanded into the
+cartesian product of runs, which are encoded one after another. When it
+expands into several runs, run ``i`` writes into ``<workdir>/run_<i>`` and to
+``<output stem>_<i><suffix>``, so that no run overwrites another's files.
 
 Writes the bitstream to ``--output`` and, into the workdir,
 ``results_best.tsv`` (the JAX encoder's columns, then ``rate_nn_bpp``) and
@@ -30,7 +37,8 @@ import torch
 
 def _build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="coolchic_tpu_torch image encoder")
-    p.add_argument("--input", type=Path, required=True, help=".png or .ppm image")
+    p.add_argument("--config", type=Path, default=None, help="UserConfig YAML")
+    p.add_argument("--input", type=Path, default=None, help=".png or .ppm image")
     p.add_argument("--output", type=Path, default=None, help=".cool bitstream to write")
     p.add_argument("--workdir", type=Path, default=None)
     p.add_argument("--lmbda", type=float, default=1e-3)
@@ -75,6 +83,10 @@ def encode_one_run(
     from coolchic_tpu_torch.train.encode import encode_frame_with_quant_info
     from coolchic_tpu_torch.utils.types import resolve_device
 
+    if str(run_cfg.input).endswith(".yuv"):
+        raise NotImplementedError(
+            f"{run_cfg.input}: .yuv inputs are video, which the video slice of the port "
+            "(video/*, the P/B branches of frame_forward) will encode")
     device = resolve_device(device)
     fd = load_frame_data_from_file(str(run_cfg.input))
     cfg = run_cfg.dec_cfg.to_coolchic_config(fd.img_size)
@@ -107,6 +119,7 @@ def encode_one_run(
             hls_sig_blksize=hls_sig_blksize,
         )
         if run_cfg.output:
+            Path(run_cfg.output).parent.mkdir(parents=True, exist_ok=True)
             Path(run_cfg.output).write_bytes(bitstream)
         real_bpp = len(bitstream) * 8 / cfg.n_pixels
         decoded_img, _ = decode_bitstream(bitstream, integer_pipeline=True)
@@ -137,25 +150,41 @@ def encode_one_run(
 
 
 def main(argv=None) -> int:
-    args = _build_argparser().parse_args(argv)
-    from coolchic_tpu_torch.utils.types import DecoderConfig, EncoderConfig, RunConfig
+    parser = _build_argparser()
+    args = parser.parse_args(argv)
+    from dataclasses import replace
 
-    run_cfg = RunConfig(
-        input=args.input,
-        lmbda=args.lmbda,
-        workdir=args.workdir,
-        output=args.output,
-        enc_cfg=EncoderConfig(
-            std_recipe_name=args.enc_preset, n_itr=args.n_itr, n_train_loops=args.n_train_loops
-        ),
-        dec_cfg=DecoderConfig.from_yaml(args.dec_cfg) if args.dec_cfg else DecoderConfig(),
-    )
-    row = encode_one_run(run_cfg, args.seed, args.device, args.hls_sig_blksize).row
-    print(
-        f"{row['seq_name']}: lmbda={row['lmbda']:.1e} psnr={row['psnr_db']:.3f} dB "
-        f"(estimate {row['psnr_db_estimate']:.3f}) rate={row['rate_bpp']:.4f} bpp "
-        f"(latents estimated {row['rate_latent_bpp']:.4f}) ({row['encoding_time_sec']:.1f} s)"
-    )
+    from coolchic_tpu_torch.utils.types import DecoderConfig, EncoderConfig, UserConfig
+
+    if args.config is not None:
+        user_cfg = UserConfig.from_yaml(args.config)
+    else:
+        if args.input is None:
+            parser.error("--input or --config required")
+        user_cfg = UserConfig(
+            input=[args.input],
+            lmbda=[args.lmbda],
+            workdir=args.workdir,
+            output=args.output,
+            enc_cfg=EncoderConfig(
+                std_recipe_name=args.enc_preset, n_itr=args.n_itr,
+                n_train_loops=args.n_train_loops),
+            dec_cfg=[DecoderConfig.from_yaml(args.dec_cfg) if args.dec_cfg else DecoderConfig()],
+        )
+    runs = user_cfg.get_run_configs()
+    for i, run_cfg in enumerate(runs):
+        if len(runs) > 1:  # a place of its own for each run's files
+            out, wd = run_cfg.output, run_cfg.workdir
+            run_cfg = replace(
+                run_cfg,
+                workdir=None if wd is None else wd / f"run_{i:03d}",
+                output=None if out is None else out.with_name(f"{out.stem}_{i:03d}{out.suffix}"))
+        row = encode_one_run(run_cfg, args.seed, args.device, args.hls_sig_blksize).row
+        print(
+            f"{row['seq_name']}: lmbda={row['lmbda']:.1e} psnr={row['psnr_db']:.3f} dB "
+            f"(estimate {row['psnr_db_estimate']:.3f}) rate={row['rate_bpp']:.4f} bpp "
+            f"(latents estimated {row['rate_latent_bpp']:.4f}) ({row['encoding_time_sec']:.1f} s)"
+        )
     return 0
 
 

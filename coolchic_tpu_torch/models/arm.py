@@ -42,12 +42,15 @@ def context_offsets(dim_arm: int) -> Tuple[Tuple[int, int], ...]:
 
 
 def get_neighbors(x: torch.Tensor, dim_arm: int) -> torch.Tensor:
-    """Causal contexts of a [C, H, W] grid as [C*H*W, dim_arm], raster order,
-    channel-major (``dim_arm`` shifted slices of the zero-padded grid)."""
-    c, h, w = x.shape
-    x_pad = F.pad(x, (PAD, PAD, PAD, PAD))
+    """Causal contexts of a [..., C, H, W] grid as [..., C*H*W, dim_arm],
+    raster order, channel-major (``dim_arm`` shifted slices of the zero-padded
+    grid)."""
+    c, h, w = x.shape[-3:]
+    # Planes on one axis: stacking slices of more than three axes would copy
+    # each slice to a contiguous tensor first.
+    x_pad = F.pad(x.reshape(-1, h, w), (PAD, PAD, PAD, PAD))
     ctx = [x_pad[:, dy : dy + h, dx : dx + w] for (dy, dx) in context_offsets(dim_arm)]
-    return torch.stack(ctx, dim=-1).reshape(c * h * w, dim_arm)
+    return torch.stack(ctx, dim=-1).reshape(*x.shape[:-3], c * h * w, dim_arm)
 
 
 def init_arm_params(
@@ -70,18 +73,65 @@ def init_arm_params(
     return {"layers": layers}
 
 
+OUTER_SUM_CHUNK = 4096  # rows per batch entry of rows_outer_sum
+
+
+def rows_outer_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a^T b`` per image, [B, M, O] x [B, M, C] -> [B, O, C], with the sum
+    over the M rows split into chunks of ``OUTER_SUM_CHUNK`` rows that are
+    multiplied as separate batch entries and then added. One batched product of B > 1
+    images would give each image's O x C result to a single thread block that
+    walks all M rows (half a million here) alone."""
+    n_images, m, _ = a.shape
+    if n_images == 1:  # a plain product, whose sum the library splits itself (0.13 ms of a step)
+        return (a[0].T @ b[0])[None]
+    chunk = OUTER_SUM_CHUNK
+    n_chunks = m // chunk
+    main = n_chunks * chunk
+    out = a[:, main:].mT @ b[:, main:]
+    if n_chunks:
+        parts = (a[:, :main].reshape(n_images, n_chunks, chunk, -1).mT
+                 @ b[:, :main].reshape(n_images, n_chunks, chunk, -1))
+        out = out + parts.sum(dim=1)
+    return out
+
+
+class BatchedLinear(torch.autograd.Function):
+    """``x W^T + b`` of B layers at once: x [B, M, C], W [B, O, C], b [B, O].
+    The backward takes the weights' gradient with ``rows_outer_sum``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return torch.baddbmm(bias.unsqueeze(-2), x, weight.mT)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        return grad @ weight, rows_outer_sum(grad, x), grad.sum(dim=-2)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``x W^T + b`` on [M, C] rows, or of B layers at once on [B, M, C]."""
+    if x.dim() == 3:
+        return BatchedLinear.apply(x, weight, bias)
+    return x @ weight.T + bias
+
+
 def arm_apply(
     params: ArmParams, ctx: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ARM MLP on [M, C] contexts: residual layers ``relu(x W^T + b + x)``,
     then the 2-wide head. Returns (mu, scale, log_scale), each [M], with
-    ``scale = exp(clamp(log_scale - 4, -4.6, 5))``."""
+    ``scale = exp(clamp(log_scale - 4, -4.6, 5))``. With a leading [B] axis
+    on the contexts and on every weight and bias, B ARMs run at once
+    (batched matrix products)."""
     x = ctx
     layers = params["layers"]
     for layer in layers[:-1]:
-        x = torch.relu(x @ layer["weight"].T + layer["bias"] + x)
+        x = torch.relu(linear(x, layer["weight"], layer["bias"]) + x)
     head = layers[-1]
-    raw = x @ head["weight"].T + head["bias"]
+    raw = linear(x, head["weight"], head["bias"])
     mu = raw[..., 0]
     log_scale = raw[..., 1]
     scale = torch.exp(torch.clamp(log_scale - 4.0, -4.6, 5.0))
@@ -133,8 +183,9 @@ def arm_rate_plain(
     latents: Sequence[torch.Tensor], params: ArmParams, dim_arm: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flat rate [n_latents] over a pyramid of [C, H, W] grids, in forward
-    order (grid-major, then channel, then raster), plus mu and log_scale."""
-    flat = torch.cat([y.reshape(-1) for y in latents])
-    ctx = torch.cat([get_neighbors(y, dim_arm) for y in latents], dim=0)
+    order (grid-major, then channel, then raster), plus mu and log_scale.
+    With a leading [B] axis on the grids and the params: [B, n_latents]."""
+    flat = torch.cat([y.flatten(-3) for y in latents], dim=-1)
+    ctx = torch.cat([get_neighbors(y, dim_arm) for y in latents], dim=-2)
     mu, scale, log_scale = arm_apply(params, ctx)
     return latent_rate_bits(flat, mu, scale), mu, log_scale

@@ -2,10 +2,24 @@
 
 Counterpart of ``coolchic_tpu/models/coolchic.py`` for I frames: quantize
 the gained latents, measure their rate with the ARM, upsample, synthesize.
-In eval mode the rate comes from ``ops.arm_rate.arm_rate_pyramid``, which
-launches the CUDA kernel on a CUDA tensor (and runs the plain ARM on a CPU
-tensor); ``mu`` and ``log_scale`` are then None. In training mode the plain
-ARM of ``models/arm.py`` runs, since the backward needs it.
+In eval mode the rate comes from ``ops.arm_rate``, which launches the CUDA
+kernel on a CUDA tensor (and runs the plain ARM on a CPU tensor); ``mu`` and
+``log_scale`` are then None. In training mode the plain ARM of
+``models/arm.py`` runs, since the backward needs it.
+
+A batch of B decoders is the same parameter dict with a leading [B] axis on
+every leaf (``params.stack_params``): the forward then runs all of them in
+one pass, row b equal to the single forward on row b's parameters. The batch
+axis is written out rather than vmapped: the eval rate is a ctypes kernel
+launch that ``torch.func.vmap`` cannot trace, and with the axis explicit a
+step issues as many device kernels for B decoders as for one (grouped
+convolutions with ``groups = B``, batched matrix products in the ARM).
+
+With ``valid_hw`` an image smaller than the buffer is encoded as if
+unpadded (``models/masking.py``). The eval rate still goes through the
+kernel: masked latents are exact zeros, so valid latents read the context
+the unpadded encode's zero padding gives them, and the mask multiplies the
+rate afterwards.
 """
 
 from __future__ import annotations
@@ -16,10 +30,11 @@ import torch
 
 from coolchic_tpu_torch.models.arm import arm_rate_plain, init_arm_params
 from coolchic_tpu_torch.models.config import CoolChicConfig
+from coolchic_tpu_torch.models.masking import level_valid_hw, valid_mask_2d
 from coolchic_tpu_torch.models.quantizer import quantize
 from coolchic_tpu_torch.models.synthesis import init_synthesis_params, synthesis_apply
 from coolchic_tpu_torch.models.upsampling import init_upsampling_params, upsampling_apply
-from coolchic_tpu_torch.ops.arm_rate import arm_rate_pyramid
+from coolchic_tpu_torch.ops.arm_rate import arm_rate_pyramid, arm_rate_pyramid_batch
 
 Params = Dict[str, Any]
 
@@ -62,8 +77,10 @@ def coolchic_forward(
     training: bool = True,
     noise: Optional[Sequence[torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    valid_hw: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
-    """Cool-chic forward pass.
+    """Cool-chic forward pass of one decoder, or of B decoders when every
+    leaf of ``params`` has a leading [B] axis.
 
     Args:
         params: parameter dict (see the package docstring).
@@ -71,16 +88,24 @@ def coolchic_forward(
         ac_max_val: if != -1, clamp y_hat to [-ac_max_val, ac_max_val + 1].
         training: False selects hardround with no noise and the ARM kernel.
         noise: optional raw noise draw per grid (see ``quantize``); else the
-            noise is drawn with ``generator``.
+            noise is drawn with ``generator`` (one draw per grid, for the
+            whole batch).
+        valid_hw: integer tensor [2] (or [B, 2]) of the true (H, W): latents
+            outside the valid pyramid are forced to zero and their rate
+            masked out, and replicate-padded ops see the replicated valid
+            edge. None: the whole buffer is the image.
 
     Returns:
         (raw_out [C_out, H, W], rate_bits [n_latents], extras) with extras
-        ``mu`` / ``log_scale`` (None in eval mode) and ``flat_latent``.
+        ``mu`` / ``log_scale`` (None in eval mode) and ``flat_latent``; each
+        with a leading [B] axis for a batch.
     """
     noise_type = quantizer_noise_type if training else "none"
     q_type = quantizer_type if training else "hardround"
+    batched = params["latents"][0].dim() == 4
 
     y_hat: List[torch.Tensor] = []
+    masks: List[torch.Tensor] = []
     for level, latent in enumerate(params["latents"]):
         q = quantize(
             latent * cfg.encoder_gain,
@@ -95,19 +120,28 @@ def coolchic_forward(
             q = torch.clamp(q, -ac_max_val, ac_max_val + 1)
         if level in cfg.frozen_zero_grids:
             q = q * 0.0
+        if valid_hw is not None:
+            mask = valid_mask_2d(q.shape[-2], q.shape[-1], *level_valid_hw(valid_hw, level))
+            q = q * mask.unsqueeze(-3)
+            masks.append(mask.unsqueeze(-3).expand(q.shape).flatten(-3))
         y_hat.append(q)
 
-    flat_latent = torch.cat([y.reshape(-1) for y in y_hat])
+    flat_latent = torch.cat([y.flatten(-3) for y in y_hat], dim=-1)
     if training:
         rate, mu, log_scale = arm_rate_plain(y_hat, params["arm"], cfg.dim_arm)
     else:
-        rate = arm_rate_pyramid(y_hat, params["arm"], cfg.dim_arm, cfg.n_hidden_layers_arm)
+        eval_rate = arm_rate_pyramid_batch if batched else arm_rate_pyramid
+        rate = eval_rate(y_hat, params["arm"], cfg.dim_arm, cfg.n_hidden_layers_arm)
         mu = log_scale = None
+    if valid_hw is not None:
+        rate = rate * torch.cat(masks, dim=-1)
 
     dense = upsampling_apply(
-        params["upsampling"], y_hat, cfg.ups_k_size, cfg.ups_preconcat_k_size
+        params["upsampling"], y_hat, cfg.ups_k_size, cfg.ups_preconcat_k_size, valid_hw
     )
-    raw_out = synthesis_apply(params["synthesis"], dense, cfg.parsed_synthesis_layers())
+    raw_out = synthesis_apply(
+        params["synthesis"], dense, cfg.parsed_synthesis_layers(), valid_hw
+    )
     extras = {"mu": mu, "log_scale": log_scale, "flat_latent": flat_latent}
     return raw_out, rate, extras
 
@@ -124,6 +158,7 @@ def frame_forward(
     bitdepth: int = 8,
     noise: Optional[Sequence[torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    valid_hw: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
     """I-frame forward: ``coolchic_forward``, then in eval mode the
     round-trip to ``2^bitdepth - 1`` integer levels, then a clamp to [0, 1]."""
@@ -138,6 +173,7 @@ def frame_forward(
         training=training,
         noise=noise,
         generator=generator,
+        valid_hw=valid_hw,
     )
     decoded = raw_out
     if not training:

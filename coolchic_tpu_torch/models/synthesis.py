@@ -7,10 +7,12 @@ replicate-pad, convolve, optional residual add, then optional ReLU.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from coolchic_tpu_torch.models.masking import replicate_extend
 
 SynParams = Dict[str, List[Dict[str, torch.Tensor]]]
 
@@ -42,16 +44,31 @@ def synthesis_apply(
     params: SynParams,
     x: torch.Tensor,
     parsed_layers: Sequence[Tuple[int, int, bool, bool]],
+    valid_hw: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """[C_in, H, W] dense latent -> [C_out, H, W] image."""
-    y = x[None]
+    """[C_in, H, W] dense latent -> [C_out, H, W] image; with a leading [B]
+    axis on ``x`` and on every weight and bias, B decoders at once: the
+    images' channels lie side by side on the channel axis and each layer is
+    one convolution with ``groups = B``.
+
+    ``valid_hw`` ([2] or [B, 2], see ``models/masking.py``): before every
+    k > 1 convolution the buffer is replicate-extended at the true image
+    edge; 1x1 layers are pointwise and need nothing.
+    """
+    b = x.shape[0] if x.dim() == 4 else 1
+    h, w = x.shape[-2:]
+    y = x.reshape(1, -1, h, w)
     for layer, (_out_ft, k_size, residual, relu) in zip(params["layers"], parsed_layers):
         pad = (k_size - 1) // 2
+        if pad and valid_hw is not None:
+            hv, wv = valid_hw[..., 0, None], valid_hw[..., 1, None]  # against [B, C]
+            y = replicate_extend(y.view(b, -1, h, w), hv, wv).view(y.shape)
         inp = F.pad(y, (pad, pad, pad, pad), mode="replicate") if pad else y
-        out = F.conv2d(inp, layer["weight"], layer["bias"])
+        weight = layer["weight"].reshape(-1, *layer["weight"].shape[-3:])
+        out = F.conv2d(inp, weight, layer["bias"].reshape(-1), groups=b)
         if residual:
             out = out + y
         if relu:
             out = torch.relu(out)
         y = out
-    return y[0]
+    return y.view(*x.shape[:-3], -1, h, w)

@@ -4,12 +4,15 @@ A frame's parameters are nested dicts and lists of arrays (see the package
 docstring). These two functions move such a tree across the framework
 boundary without changing its structure or its bits: tests feed the JAX
 package's weights to the port this way, and the bitstream writer takes the
-port's weights back as numpy.
+port's weights back as numpy. A batch of B decoders is the same tree with a
+leading [B] axis on every leaf (what ``jax.vmap`` of the JAX package's init
+gives), and crosses the boundary unchanged; ``stack_params`` and
+``unstack_params`` go between it and B single trees.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List, Sequence
 
 import numpy as np
 import torch
@@ -57,6 +60,24 @@ def tree_map(fn, tree: Any) -> Any:
 def tree_clone(tree: Any) -> Any:
     """Detached copies of every leaf (a snapshot that no later update touches)."""
     return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def stack_params(trees: Sequence[Any]) -> Any:
+    """B trees of one structure -> one tree whose leaves have a leading [B]
+    axis: the parameters of a batch of decoders."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_params([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(stack_params([t[i] for t in trees]) for i in range(len(first)))
+    return torch.stack(list(trees))
+
+
+def unstack_params(tree: Any) -> List[Any]:
+    """The inverse of ``stack_params``: one tree per row of the leading axis
+    (views of the stacked leaves)."""
+    n = tree_leaves(tree)[0].shape[0]
+    return [tree_map(lambda t: t[b], tree) for b in range(n)]
 
 
 def flatten_with_paths(tree: Any, prefix: str = "") -> dict:

@@ -1,24 +1,30 @@
 """Post-training quantization of the decoder networks: RD grid search.
 
 Counterpart of ``coolchic_tpu/train/quantize_model.py`` (the hypernet delta
-search waits). For each module sent to the decoder (arm, synthesis,
-upsampling, greedily in that order), every (q_step_weight, q_step_bias) pair
-of ``Q_STEPS`` is tried with one eval forward, and the pair minimizing
+search waits) and of its ``vmap`` over images. For each module sent to the
+decoder (arm, synthesis, upsampling, greedily in that order), every
+(q_step_weight, q_step_bias) pair of ``Q_STEPS`` is tried with one eval
+forward, and the pair minimizing
 ``MSE + lmbda * (R_latent + R_nn) / n_pixels`` wins; R_nn uses the best
-exp-Golomb order per parameter family. Pairs run one after another; the
-losses stay on the device until the module's argmin.
+exp-Golomb order per parameter family. The search runs on a batch of B
+decoders (every leaf with a leading [B] axis): the grid of pairs is shared,
+one eval forward tries a pair on all B, and the argmin is per image. Pairs
+run one after another; the losses stay on the device until the module's
+argmin. One image is the batch of one.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from coolchic_tpu_torch.models.coolchic import frame_forward
 from coolchic_tpu_torch.models.config import CoolChicConfig
+from coolchic_tpu_torch.params import tree_map
 from coolchic_tpu_torch.train.loss import loss_function
+from coolchic_tpu_torch.train.step import row_views
 
 Params = Dict
 
@@ -64,12 +70,12 @@ def rebuild_module(params: Params, module: str, weights, biases) -> Params:
 
 
 def expgol_bits_all_counts(v: torch.Tensor) -> torch.Tensor:
-    """Bits to code integer symbols ``v`` with exp-Golomb order c, for every
-    c in 0..12 at once. Returns [13]."""
+    """Bits to code integer symbols ``v`` ([..., N]) with exp-Golomb order c,
+    for every c in 0..12 at once. Returns [..., 13]."""
     counts = torch.as_tensor(EXP_GOL_COUNTS, dtype=torch.float32, device=v.device)
-    av = torch.abs(v)[:, None]
+    av = torch.abs(v)[..., None]
     nbins = 2.0 * torch.floor(torch.log2(av / 2.0**counts + 1.0)) + counts + 1.0 + (av != 0)
-    return torch.sum(nbins, dim=0)
+    return torch.sum(nbins, dim=-2)
 
 
 class ModuleQuantInfo(NamedTuple):
@@ -80,31 +86,36 @@ class ModuleQuantInfo(NamedTuple):
     rate_bits: float  # module rate with those choices
 
 
-def quantize_leaves(leaves: List[torch.Tensor], q_step: float):
-    """round(p / q) * q per leaf, the integer symbols, and whether every
-    symbol fits the 16-bit range."""
+def quantize_leaves(leaves: List[torch.Tensor], q_step: torch.Tensor):
+    """round(p / q) * q per [B, ...] leaf with one ``q_step`` per image (a [B]
+    tensor), the integer symbols [B, N], and per image whether every symbol
+    fits the 16-bit range. The step is always a tensor: a CUDA division by a
+    Python number multiplies by its reciprocal instead, which rounds some
+    symbols the other way, and the trial of a pair and the winner's
+    re-quantization must give the same symbols."""
     q_leaves, ints = [], []
-    valid = torch.ones((), dtype=torch.bool, device=leaves[0].device)
-    for p in leaves:
-        sent = torch.round(p / q_step)
-        valid = valid & (torch.max(torch.abs(sent)) <= MAX_AC_MAX_VAL)
-        q_leaves.append(sent * q_step)
-        ints.append(sent.reshape(-1))
-    return q_leaves, torch.cat(ints), valid
+    for p, q in zip(leaves, row_views(q_step, leaves)):
+        sent = torch.round(p / q)
+        q_leaves.append(sent * q)
+        ints.append(sent.flatten(1))
+    ints = torch.cat(ints, dim=1)
+    return q_leaves, ints, torch.amax(torch.abs(ints), dim=1) <= MAX_AC_MAX_VAL
 
 
 @torch.no_grad()
 def quantize_module(
     params: Params,
     module: str,
-    target: torch.Tensor,
-    lmbda: float,
+    targets: torch.Tensor,
+    lmbdas: torch.Tensor,
     cfg: CoolChicConfig,
-    other_nn_rate_bits: float,
-) -> Tuple[Params, ModuleQuantInfo, int]:
-    """RD-search the (q_step_w, q_step_b) grid of one module. Returns the
-    params with that module quantized, the choice, and the number of eval
-    forwards run."""
+    other_nn_rate_bits: torch.Tensor,
+    valid_hws: Optional[torch.Tensor] = None,
+) -> Tuple[Params, List[ModuleQuantInfo], int]:
+    """RD-search the (q_step_w, q_step_b) grid of one module of B decoders.
+    Returns the params with that module quantized (each image at its own
+    pair), the choice per image, and the number of batched eval forwards."""
+    device = targets.device
     w_steps = np.asarray(Q_STEPS[module]["weight"], np.float32)
     b_steps = np.asarray(Q_STEPS[module]["bias"], np.float32)
     weights, biases = module_leaves(params, module)
@@ -112,56 +123,84 @@ def quantize_module(
     if not has_bias:
         b_steps = np.array([1.0], np.float32)
     pair_w, pair_b = np.meshgrid(w_steps, b_steps, indexing="ij")
-    pairs = list(zip(pair_w.reshape(-1).tolist(), pair_b.reshape(-1).tolist()))
+    pair_w, pair_b = pair_w.reshape(-1), pair_b.reshape(-1)
 
+    n_images = targets.shape[0]
+    zeros = torch.zeros(n_images, device=device)
+    steps_w = torch.as_tensor(pair_w, device=device)[:, None].repeat(1, n_images)  # [pairs, B]
+    steps_b = torch.as_tensor(pair_b, device=device)[:, None].repeat(1, n_images)
     losses, rates, cnts_w, cnts_b = [], [], [], []
-    for dw, db in pairs:
+    for dw, db in zip(steps_w, steps_b):
         qw, int_w, valid = quantize_leaves(weights, dw)
-        bits_w_all = expgol_bits_all_counts(int_w)
-        bits_w, cnt_w = torch.min(bits_w_all), torch.argmin(bits_w_all)
-        qb = []
-        bits_b = torch.zeros((), device=target.device)
-        cnt_b = torch.zeros((), dtype=torch.long, device=target.device)
+        bits_w, cnt_w = torch.min(expgol_bits_all_counts(int_w), dim=-1)
+        qb, bits_b, cnt_b = [], zeros, zeros.long()
         if has_bias:
             qb, int_b, valid_b = quantize_leaves(biases, db)
             valid = valid & valid_b
-            bits_b_all = expgol_bits_all_counts(int_b)
-            bits_b, cnt_b = torch.min(bits_b_all), torch.argmin(bits_b_all)
+            bits_b, cnt_b = torch.min(expgol_bits_all_counts(int_b), dim=-1)
 
         trial = rebuild_module(params, module, qw, qb)
-        decoded, rate, _ = frame_forward(trial, cfg, training=False)
+        decoded, rate, _ = frame_forward(trial, cfg, training=False, valid_hw=valid_hws)
         nn_bits = bits_w + bits_b + other_nn_rate_bits
-        loss = loss_function(decoded, rate, target, lmbda, nn_bits).loss
+        loss = loss_function(decoded, rate, targets, lmbdas, nn_bits, valid_hw=valid_hws).loss
         losses.append(torch.where(valid, loss, torch.full_like(loss, float("inf"))))
         rates.append(bits_w + bits_b)
         cnts_w.append(cnt_w)
         cnts_b.append(cnt_b)
 
-    best = int(torch.argmin(torch.stack(losses)).item())
-    dw, db = pairs[best]
-    qw, _, _ = quantize_leaves(weights, dw)
-    qb = quantize_leaves(biases, db)[0] if has_bias else []
-    info = ModuleQuantInfo(
-        q_step_w=dw,
-        q_step_b=db,
-        expgol_w=int(cnts_w[best].item()),
-        expgol_b=int(cnts_b[best].item()),
-        rate_bits=float(rates[best].item()),
-    )
-    return rebuild_module(params, module, qw, qb), info, len(pairs)
+    best = torch.argmin(torch.stack(losses), dim=0)  # [B]: each image's pair
+    picked = torch.stack([torch.stack(x).gather(0, best[None])[0].double()
+                          for x in (rates, cnts_w, cnts_b)]).cpu()
+    best = best.cpu().numpy()
+    dw, db = pair_w[best], pair_b[best]
+    qw, _, _ = quantize_leaves(weights, torch.as_tensor(dw, device=device))
+    qb = quantize_leaves(biases, torch.as_tensor(db, device=device))[0] if has_bias else []
+    infos = [
+        ModuleQuantInfo(
+            q_step_w=float(dw[b]),
+            q_step_b=float(db[b]),
+            expgol_w=int(picked[1, b]),
+            expgol_b=int(picked[2, b]),
+            rate_bits=float(picked[0, b]),
+        )
+        for b in range(len(best))
+    ]
+    return rebuild_module(params, module, qw, qb), infos, len(pair_w)
+
+
+def quantize_model_batch(
+    params: Params,
+    targets: torch.Tensor,
+    lmbdas: torch.Tensor | Sequence[float],
+    cfg: CoolChicConfig,
+    valid_hws: Optional[torch.Tensor] = None,
+) -> Tuple[Params, List[Dict[str, ModuleQuantInfo]], int]:
+    """Quantize arm, synthesis, then upsampling of B decoders greedily.
+    Returns the quantized stacked params, the per-module choices of each
+    image, and the batched eval forwards run."""
+    n_images = targets.shape[0]
+    lmbdas = torch.as_tensor(lmbdas, dtype=torch.float32, device=targets.device)
+    infos: List[Dict[str, ModuleQuantInfo]] = [{} for _ in range(n_images)]
+    other_rate = torch.zeros(n_images, device=targets.device)
+    n_evals = 0
+    for module in MODULES_TO_SEND:
+        params, module_infos, n = quantize_module(
+            params, module, targets, lmbdas, cfg, other_rate, valid_hws)
+        for image_infos, info in zip(infos, module_infos):
+            image_infos[module] = info
+        other_rate = other_rate + torch.tensor(
+            [info.rate_bits for info in module_infos], device=targets.device)
+        n_evals += n
+    return params, infos, n_evals
 
 
 def quantize_model_with_info(
-    params: Params, target: torch.Tensor, lmbda: float, cfg: CoolChicConfig
+    params: Params, target: torch.Tensor, lmbda: float, cfg: CoolChicConfig,
+    valid_hw: Optional[torch.Tensor] = None,
 ) -> Tuple[Params, Dict[str, ModuleQuantInfo], int]:
-    """Quantize arm, synthesis, then upsampling greedily. Returns the
-    quantized params, the per-module choices, and the eval forwards run."""
-    infos: Dict[str, ModuleQuantInfo] = {}
-    other_rate = 0.0
-    n_evals = 0
-    for module in MODULES_TO_SEND:
-        params, info, n = quantize_module(params, module, target, lmbda, cfg, other_rate)
-        infos[module] = info
-        other_rate += info.rate_bits
-        n_evals += n
-    return params, infos, n_evals
+    """``quantize_model_batch`` on one image: the quantized params, the
+    per-module choices, and the eval forwards run."""
+    params, infos, n_evals = quantize_model_batch(
+        tree_map(lambda t: t[None], params), target[None], [lmbda], cfg,
+        None if valid_hw is None else valid_hw[None])
+    return tree_map(lambda t: t[0], params), infos[0], n_evals

@@ -1,17 +1,19 @@
 """Where the time of one training step and one eval forward goes, on a GPU.
 
-    python -m coolchic_tpu_torch.utils.profile_step
+    python -m coolchic_tpu_torch.utils.profile_step [B ...]
 
-Builds the default decoder (arm 24,2; 40-wide synthesis; 7 grids) at 512x768
-with random weights (seeded), runs 20 training steps of
-the c3x first phase (softround + gaussian noise) and as many eval forwards,
-and prints one JSON line per measurement: wall time per step and per eval
+For each batch size B given (default: 1), builds B default decoders (arm
+24,2; 40-wide synthesis; 7 grids) at 512x768 with random weights (seeded),
+stacked, runs 20 batched training steps of the c3x first phase (softround +
+gaussian noise) and as many batched eval forwards, and prints one JSON line
+per measurement: wall time per step and per eval
 forward (host clock around synchronised work), then the device time by
 kernel from ``torch.profiler`` over a window of as many of each (after one
 unrecorded warm-up iteration of the profiler), with the share of the wall
 time the device was busy. The eval-forward line also gives the ARM kernel's
 launches as the wrapper counted them over the window beside the profiler's
-count (``profile_complete``: the profiler saw every launch).
+count (``profile_complete``: the profiler saw every launch), and the peak
+device memory of the batch size.
 """
 
 from __future__ import annotations
@@ -48,39 +50,50 @@ def _device_table(prof, n_iter: int, top: int = 12) -> dict:
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step needs a GPU", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for batch in [int(a) for a in (sys.argv[1:] if argv is None else argv)] or [1]:
+        profile_batch(batch)
+    return 0
 
+
+def profile_batch(batch: int) -> dict:
+    """Profile a batch of ``batch`` decoders; prints one JSON line for the
+    train step and one for the eval forward, and returns both by name."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from coolchic_tpu_torch.models.coolchic import init_coolchic_params
     from coolchic_tpu_torch.ops import arm_rate as ar
-    from coolchic_tpu_torch.params import tree_leaves
+    from coolchic_tpu_torch.params import stack_params, tree_leaves
     from coolchic_tpu_torch.train.presets import load_preset
     from coolchic_tpu_torch.train.step import AdamState, eval_metrics, make_generator, train_step
     from coolchic_tpu_torch.utils.types import DecoderConfig
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     cfg = DecoderConfig().to_coolchic_config((H, W))
     phase = load_preset("c3x").all_phases[0]
     gen = make_generator(device, 0)
-    params = init_coolchic_params(gen, cfg, device, latent_init="normal")
+    params = stack_params(
+        [init_coolchic_params(gen, cfg, device, latent_init="normal") for _ in range(batch)])
     tensors = tree_leaves(params)
     for t in tensors:
         t.requires_grad_(True)
     opt = AdamState.zeros(tensors)
-    target = torch.rand(3, H, W, generator=gen, device=device)
+    target = torch.rand(batch, 3, H, W, generator=gen, device=device)
+    lmbdas = torch.full((batch,), 1e-3, device=device)
+    torch.cuda.reset_peak_memory_stats()
 
     def step():
-        train_step(params, tensors, opt, target, 1e-3, cfg, phase, 1e-3, 0.3, 0.25, gen)
+        train_step(params, tensors, opt, target, lmbdas, cfg, phase, 1e-3, 0.3, 0.25, gen)
 
     def evaluate():
-        eval_metrics(params, cfg, target, 1e-3)
+        eval_metrics(params, cfg, target, lmbdas)
 
+    lines = {}
     for name, fn in (("train_step", step), ("eval_forward", evaluate)):
         for _ in range(3):
             fn()
@@ -100,14 +113,16 @@ def main() -> int:
                     torch.cuda.synchronize()
                 prof.step()
         table = _device_table(prof, STEPS)
-        print(json.dumps({
-            "what": name, "img_size": [H, W], "wall_ms": wall_ms,
+        lines[name] = {
+            "what": name, "batch": batch, "img_size": [H, W], "wall_ms": wall_ms,
             "device_busy_share": table["device_ms_per_iter"] / wall_ms, **table,
             "arm_rate_launches": ar.launch_count,
             "profile_complete": table["arm_rate_calls"] == ar.launch_count,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "device": torch.cuda.get_device_name(0),
-        }), flush=True)
-    return 0
+        }
+        print(json.dumps(lines[name]), flush=True)
+    return lines
 
 
 if __name__ == "__main__":

@@ -1,16 +1,19 @@
 """Configuration of one image encode run.
 
 Counterpart of the image-CLI part of ``coolchic_tpu/utils/types.py``
-(``DecoderConfig``, ``EncoderConfig``, ``RunConfig``), as plain dataclasses.
-Decoder configs are read from ``cfg/dec/*.yaml``; the training recipe from
-``preset_cfg/*.yaml`` (``train/presets.py``).
+(``DecoderConfig``, ``EncoderConfig``, ``RunConfig``, ``UserConfig``), as
+plain dataclasses. Decoder configs are read from ``cfg/dec/*.yaml``; the
+training recipe from ``preset_cfg/*.yaml`` (``train/presets.py``). A
+``UserConfig`` YAML gives ``input``, ``lmbda`` and ``dec_cfg`` each as a
+value or a list and expands into the cartesian product of runs.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields
+import itertools
+from dataclasses import dataclass, field, fields, replace
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -31,15 +34,15 @@ class DecoderConfig:
     encoder_gain: int = 16
 
     @classmethod
+    def from_dict(cls, d: Dict[str, Any], where: str = "") -> "DecoderConfig":
+        return cls(**_known_fields(cls, d, f"decoder config{where}"))
+
+    @classmethod
     def from_yaml(cls, path: str | Path) -> "DecoderConfig":
         import yaml
 
         with open(path) as f:
-            d = yaml.safe_load(f) or {}
-        unknown = set(d) - {f.name for f in fields(cls)}
-        if unknown:
-            raise ValueError(f"unknown decoder config fields {sorted(unknown)} in {path}")
-        return cls(**d)
+            return cls.from_dict(yaml.safe_load(f) or {}, f" in {path}")
 
     @property
     def dim_arm(self) -> int:
@@ -77,6 +80,11 @@ class EncoderConfig:
     """Training recipe of a run: a named preset of ``preset_cfg/`` whose
     first phase lasts ``n_itr`` iterations when given."""
 
+    # Keys of the JAX package's YAML files (``cfg/enc/*.yaml``) that an image
+    # encode does not use: a video's coding structure, and a learning rate
+    # that the recipe's phases set themselves. Read and dropped.
+    IGNORED_KEYS = ("intra_period", "p_period", "start_lr")
+
     std_recipe_name: str = "c3x"
     n_itr: Optional[int] = None
     n_train_loops: int = 1
@@ -85,6 +93,14 @@ class EncoderConfig:
     def __post_init__(self):
         if self.recipe is None:
             self.recipe = load_preset(self.std_recipe_name, self.n_itr)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EncoderConfig":
+        kw = _known_fields(
+            cls, {k: v for k, v in d.items() if k not in cls.IGNORED_KEYS}, "encoder config")
+        if "recipe" in kw:
+            raise ValueError("an inline recipe is not read here: name one with std_recipe_name")
+        return cls(**kw)
 
 
 @dataclass
@@ -95,6 +111,63 @@ class RunConfig:
     output: Optional[Path] = None  # the .cool bitstream
     enc_cfg: EncoderConfig = field(default_factory=EncoderConfig)
     dec_cfg: DecoderConfig = field(default_factory=DecoderConfig)
+
+
+def _known_fields(cls, d: Dict[str, Any], what: str) -> Dict[str, Any]:
+    unknown = set(d) - {f.name for f in fields(cls)}
+    if unknown:
+        raise ValueError(f"unknown {what} fields {sorted(unknown)}")
+    return dict(d)
+
+
+def _as_list(value: Any) -> List[Any]:
+    return value if isinstance(value, list) else [value]
+
+
+@dataclass
+class UserConfig:
+    """A multi-valued config: ``input``, ``lmbda`` and ``dec_cfg`` are lists
+    (a single value in the YAML is a list of one) and ``get_run_configs``
+    expands them into runs."""
+
+    input: List[Path]
+    enc_cfg: EncoderConfig
+    dec_cfg: List[DecoderConfig]
+    lmbda: List[float] = field(default_factory=lambda: [1e-3])
+    output: Optional[Path] = None
+    workdir: Optional[Path] = None
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "UserConfig":
+        kw = _known_fields(cls, d, "user config")
+        for key in ("input", "enc_cfg", "dec_cfg"):
+            if key not in kw:
+                raise ValueError(f"the user config needs '{key}'")
+        kw["input"] = [Path(p) for p in _as_list(kw["input"])]
+        if "lmbda" in kw:
+            kw["lmbda"] = [float(v) for v in _as_list(kw["lmbda"])]
+        kw["enc_cfg"] = EncoderConfig.from_dict(kw["enc_cfg"])
+        kw["dec_cfg"] = [DecoderConfig.from_dict(c) for c in _as_list(kw["dec_cfg"])]
+        for key in ("output", "workdir"):
+            if kw.get(key) is not None:
+                kw[key] = Path(kw[key])
+        return cls(**kw)
+
+    @classmethod
+    def from_yaml(cls, path: str | Path) -> "UserConfig":
+        import yaml
+
+        with open(path) as f:
+            return cls.from_dict(yaml.safe_load(f) or {})
+
+    def get_run_configs(self) -> List[RunConfig]:
+        """The cartesian product input x lmbda x dec_cfg, the last varying
+        fastest; every run shares ``enc_cfg``, ``output`` and ``workdir``."""
+        return [
+            RunConfig(input=inp, lmbda=lmbda, workdir=self.workdir, output=self.output,
+                      enc_cfg=self.enc_cfg, dec_cfg=replace(dec_cfg))
+            for inp, lmbda, dec_cfg in itertools.product(self.input, self.lmbda, self.dec_cfg)
+        ]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -278,19 +278,21 @@ def test_pyramid_matches_coolchic_forward_order():
 
 
 def test_plane_table_shapes_and_offsets():
-    """One entry per plane in forward order, offsets into the flat rate, and
-    one chunk (launch) per ``MAX_PLANES`` planes."""
+    """One entry per plane in forward order, offsets into the flat rate, the
+    stride to the same plane of a batch's next image (its grid's C * H * W),
+    and one chunk (launch) per ``MAX_PLANES`` planes."""
     table = ops.plane_table(((2, 5, 3), (1, 4, 4), (ops.MAX_PLANES, 1, 2)))
     assert table.planes[:3] == ((0, 0, 5, 3, 0), (0, 1, 5, 3, 15), (1, 0, 4, 4, 30))
     assert table.planes[3] == (2, 0, 1, 2, 46)
     assert len(table.planes) == 3 + ops.MAX_PLANES
     assert table.n_latents == 46 + 2 * ops.MAX_PLANES
     assert table.n_launches == 2
-    (s0, n0, h0, w0, o0), (s1, n1, h1, w1, o1) = table.chunks
+    (s0, n0, h0, w0, o0, t0), (s1, n1, h1, w1, o1, t1) = table.chunks
     assert (s0, n0, s1, n1) == (0, ops.MAX_PLANES, ops.MAX_PLANES, 3)
     assert list(h0[:4]) == [5, 5, 4, 1] and list(w0[:4]) == [3, 3, 4, 2]
     assert list(o0[:4]) == [0, 15, 30, 46]
     assert list(o1) == [46 + 2 * (ops.MAX_PLANES - 3 + i) for i in range(3)]
+    assert list(t0[:4]) == [30, 30, 16, 2 * ops.MAX_PLANES] and set(t1) == {2 * ops.MAX_PLANES}
     assert ops.plane_table(((2, 5, 3),)) is ops.plane_table(((2, 5, 3),))  # cached
 
 

@@ -23,7 +23,7 @@ from coolchic_tpu_torch.models.arm import init_arm_params
 from coolchic_tpu_torch.models.config import CoolChicConfig
 from coolchic_tpu_torch.models.coolchic import init_coolchic_params
 from coolchic_tpu_torch.ops import arm_rate as ops
-from coolchic_tpu_torch.params import from_numpy_pytree, to_numpy_pytree
+from coolchic_tpu_torch.params import from_numpy_pytree, stack_params, to_numpy_pytree
 from coolchic_tpu_torch.train.step import eval_metrics
 from coolchic_tpu_torch.utils.rate_check import (
     LARGE_ARMS, LARGE_SEEDS, check_rate, holds, large_latent_case,
@@ -114,6 +114,80 @@ def test_more_planes_than_one_launch_takes(cuda):
     got = ops.arm_rate_pyramid(latents, params, 8, 1)
     assert ops.launch_count == count + 2
     assert_kernel_close(got, latents, params, 8)
+
+
+@pytest.mark.parametrize("n_images", [1, 2, 5, 8, 300])
+@pytest.mark.parametrize("dim_arm,n_hidden", [(24, 2), (8, 1), (32, 40)])
+def test_batched_kernel_matches_plain_and_single_launches(cuda, n_images, dim_arm, n_hidden):
+    """B images, each with its own ARM and latents, in one launch: every row
+    within tolerance of its plain versions, and the batch equal bit for bit
+    to B single-image launches. 300 images are more than the blocks the card
+    holds at once (a block then takes several images in turn); 40 hidden
+    layers of width 32 are not all staged in shared memory."""
+    rows, gens = zip(*[_arm_params(dim_arm, n_hidden, 100 + b, cuda) for b in range(n_images)])
+    for row in rows:
+        for layer in row["layers"][1:-1]:
+            layer["weight"] *= 0.2 if n_hidden > 3 else 1.0
+    latents = [torch.round(torch.randn((n_images, 1, h, w), generator=gens[0], device=cuda) * 3.0)
+               for h, w in RAGGED]
+    count = ops.launch_count
+    got = ops.arm_rate_pyramid_batch(latents, stack_params(rows), dim_arm, n_hidden)
+    assert ops.launch_count == count + 1
+    assert got.shape == (n_images, sum(h * w for h, w in RAGGED))
+    singles = torch.stack([ops.arm_rate_pyramid([y[b] for y in latents], rows[b], dim_arm, n_hidden)
+                           for b in range(n_images)])
+    assert torch.equal(got, singles)
+    for b in range(0, n_images, max(1, n_images // 8)):
+        assert_kernel_close(got[b], [y[b] for y in latents], rows[b], dim_arm)
+
+
+def test_batched_kernel_more_planes_than_one_launch_takes(cuda):
+    """70 channels x 3 images: two launches, each over the whole batch."""
+    rows, gens = zip(*[_arm_params(8, 1, 7 + b, cuda) for b in range(3)])
+    latents = [torch.round(torch.randn((3, 70, 6, 11), generator=gens[0], device=cuda) * 2.0)]
+    count = ops.launch_count
+    got = ops.arm_rate_pyramid_batch(latents, stack_params(rows), 8, 1)
+    assert ops.launch_count == count + 2
+    for b in range(3):
+        assert torch.equal(got[b], ops.arm_rate_pyramid([latents[0][b]], rows[b], 8, 1))
+
+
+def test_batched_wrapper_raises_instead_of_falling_back(cuda):
+    rows, _ = zip(*[_arm_params(8, 1, b, cuda) for b in range(2)])
+    params = stack_params(rows)
+    latents = [torch.zeros(2, 1, 4, 5, device=cuda)]
+    with pytest.raises(ValueError):  # unbatched weights
+        ops.arm_rate_pyramid_batch(latents, rows[0], 8, 1)
+    with pytest.raises(ValueError):  # another batch size
+        ops.arm_rate_pyramid_batch([torch.zeros(3, 1, 4, 5, device=cuda)], params, 8, 1)
+    params["layers"][0]["weight"] = params["layers"][0]["weight"].mT
+    with pytest.raises(ValueError):  # not contiguous
+        ops.arm_rate_pyramid_batch(latents, params, 8, 1)
+
+
+def test_batched_masked_eval_on_the_card_matches_the_cpu(cuda):
+    """Three decoders of mixed true sizes in one buffer: the batched, masked
+    eval forward on the card (one kernel launch) against the CPU."""
+    cfg = CoolChicConfig(img_size=(45, 61), dim_arm=16, n_hidden_layers_arm=2)
+    rng = np.random.default_rng(0)
+    rows = []
+    for b in range(3):
+        row = init_coolchic_params(torch.Generator(cuda).manual_seed(b), cfg, cuda)
+        row["latents"] = [torch.tensor(rng.standard_normal(s).astype(np.float32) * 0.3,
+                                       device=cuda) for s in cfg.latent_shapes]
+        rows.append(row)
+    params = stack_params(rows)
+    targets = torch.tensor(rng.uniform(size=(3, 3, 45, 61)).astype(np.float32))
+    valid_hws = torch.tensor([[45, 61], [30, 61], [41, 33]])
+    lmbdas = torch.tensor([1e-3, 2e-3, 4e-3])
+    count = ops.launch_count
+    on_card = eval_metrics(params, cfg, targets.to(cuda), lmbdas.to(cuda), valid_hw=valid_hws.to(cuda))
+    assert ops.launch_count == count + 1
+    on_cpu = eval_metrics(from_numpy_pytree(to_numpy_pytree(params), "cpu"), cfg, targets, lmbdas,
+                          valid_hw=valid_hws)
+    np.testing.assert_allclose(on_card.rate_latent_bpp.cpu().numpy(),
+                               on_cpu.rate_latent_bpp.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(on_card.psnr_db.cpu().numpy(), on_cpu.psnr_db.numpy(), atol=0.01)
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):

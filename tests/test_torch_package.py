@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: no JAX import, the params bridge, the device
 default of the entry points, the presets and decoder configs read from the
-repo's YAML files, and the encode CLI on the CPU."""
+repo's YAML files, the expansion of a multi-valued ``UserConfig``, and the
+encode CLI on the CPU (one run, and the runs of a ``--config`` file)."""
 
 import ast
 import subprocess
@@ -16,9 +17,10 @@ from coolchic_tpu.models.coolchic import init_coolchic_params as jax_init_params
 from coolchic_tpu.models.config import CoolChicConfig as JaxConfig
 from coolchic_tpu.utils.types import DecoderConfig as JaxDecoderConfig
 from coolchic_tpu.utils.types import EncoderConfig as JaxEncoderConfig
+from coolchic_tpu.utils.types import UserConfig as JaxUserConfig
 from coolchic_tpu_torch.params import flatten_with_paths, from_numpy_pytree, to_numpy_pytree
 from coolchic_tpu_torch.train.presets import load_preset
-from coolchic_tpu_torch.utils.types import DecoderConfig, resolve_device
+from coolchic_tpu_torch.utils.types import DecoderConfig, UserConfig, resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "coolchic_tpu")
@@ -148,6 +150,108 @@ def test_cli_encodes_a_png_on_the_cpu(tmp_path, one_torch_thread):
     w = saved["arm/layers/0/weight"]
     np.testing.assert_allclose(w / q, np.round(w / q), atol=1e-4)
     assert int(saved["expgol/synthesis/bias"]) in range(13)
+
+
+USER_CONFIGS = {
+    "lists": """
+input: [a.png, b.ppm]
+lmbda: [1e-3, 4e-3, 2e-2]
+workdir: out
+output: out/stream.cool
+enc_cfg: {std_recipe_name: debug, n_itr: 120, n_train_loops: 2, start_lr: 1e-2, intra_period: 0, p_period: 0}
+dec_cfg:
+  - {arm: "8,1", layers_synthesis: "8-1-linear-relu,X-1-linear-none", n_ft_per_res: "1,1,1"}
+  - {config_name: wide, arm: "24,2", ups_k_size: 4}
+""",
+    "single_values": """
+input: a.png
+lmbda: 0.002
+enc_cfg: {std_recipe_name: c3x}
+dec_cfg: {arm: "16,2"}
+""",
+    "default_lmbda": """
+input: [a.png, b.png]
+enc_cfg: {std_recipe_name: debug}
+dec_cfg: {}
+""",
+}
+
+
+@pytest.mark.parametrize("name", sorted(USER_CONFIGS))
+def test_user_config_expansion_matches_jax(name, tmp_path):
+    """inputs x lambdas x decoder configs, in the JAX package's order."""
+    import yaml
+
+    path = tmp_path / "runs.yaml"
+    path.write_text(USER_CONFIGS[name])
+    want = JaxUserConfig(**yaml.safe_load(path.read_text())).get_run_configs()
+    user = UserConfig.from_yaml(path)
+    got = user.get_run_configs()
+    assert len(got) == len(want) == len(user.input) * len(user.lmbda) * len(user.dec_cfg)
+    for g, w in zip(got, want):
+        assert (g.input, g.lmbda, g.workdir, g.output) == (w.input, w.lmbda, w.workdir, w.output)
+        for field in ("config_name", "layers_synthesis", "arm", "ups_k_size",
+                      "ups_preconcat_k_size", "n_ft_per_res", "encoder_gain"):
+            assert getattr(g.dec_cfg, field) == getattr(w.dec_cfg, field), field
+        for field in ("std_recipe_name", "n_itr", "n_train_loops"):
+            assert getattr(g.enc_cfg, field) == getattr(w.enc_cfg, field), field
+        want_preset = w.enc_cfg.recipe.to_preset()
+        assert [vars(p) for p in g.enc_cfg.recipe.all_phases] == [
+            vars(p) for p in want_preset.all_phases]
+
+
+@pytest.mark.parametrize("text,match", [
+    ("input: a.png\nenc_cfg: {std_recipe_name: debug}\ndec_cfg: {}\nwandb: true", "wandb"),
+    ("input: a.png\nenc_cfg: {std_recipe_name: debug}\ndec_cfg: {arms: '8,1'}", "arms"),
+    ("input: a.png\nenc_cfg: {std_recipe_name: debug, lr: 1}\ndec_cfg: {}", "lr"),
+    ("lmbda: 1e-3\nenc_cfg: {std_recipe_name: debug}\ndec_cfg: {}", "input"),
+])
+def test_user_config_rejects_unknown_and_missing_fields(text, match, tmp_path):
+    path = tmp_path / "runs.yaml"
+    path.write_text(text)
+    with pytest.raises(ValueError, match=match):
+        UserConfig.from_yaml(path)
+
+
+def test_cli_config_writes_one_result_per_run(tmp_path, one_torch_thread, capsys):
+    """Two lambdas x two decoder configs on one image: four runs, each with
+    its own results_best.tsv and stream, in the expansion's order."""
+    from coolchic_tpu_torch.encode import main
+
+    _png(tmp_path / "img.png", 16, 24)
+    cfg = tmp_path / "runs.yaml"
+    cfg.write_text(f"""
+input: {tmp_path / 'img.png'}
+lmbda: [1e-3, 2e-2]
+workdir: {tmp_path / 'wd'}
+output: {tmp_path / 'wd' / 'img.cool'}
+enc_cfg: {{std_recipe_name: debug, n_itr: 20}}
+dec_cfg:
+  - {{arm: "8,1", layers_synthesis: "8-1-linear-relu,X-1-linear-none", n_ft_per_res: "1,1,1"}}
+  - {{arm: "8,1", layers_synthesis: "8-1-linear-relu,X-1-linear-none,X-3-residual-none", n_ft_per_res: "1,1"}}
+""")
+    assert main(["--config", str(cfg), "--device", "cpu"]) == 0
+    lines = [line for line in capsys.readouterr().out.splitlines() if line.startswith("img:")]
+    assert len(lines) == 4
+    rows = []
+    for i in range(4):
+        header, row = (tmp_path / "wd" / f"run_{i:03d}" / "results_best.tsv").read_text().splitlines()
+        rows.append(dict(zip(header.split("\t"), row.split("\t"))))
+        saved = np.load(tmp_path / "wd" / f"run_{i:03d}" / "params_quantized.npz")
+        assert ("latents/2" in saved) == (i % 2 == 0)  # the decoder configs alternate
+        assert (tmp_path / "wd" / f"img_{i:03d}.cool").stat().st_size * 8 == pytest.approx(
+            float(rows[-1]["rate_bpp"]) * 16 * 24)
+    assert [float(r["lmbda"]) for r in rows] == [1e-3, 1e-3, 2e-2, 2e-2]
+    assert all(np.isfinite(float(r["psnr_db"])) for r in rows)
+
+
+def test_cli_needs_an_input_or_a_config_and_names_the_video_slice(tmp_path):
+    from coolchic_tpu_torch.encode import main
+
+    with pytest.raises(SystemExit):
+        main(["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="video"):
+        main(["--input", str(tmp_path / "clip_64x64_420.yuv"), "--device", "cpu"])
 
 
 def test_ppm_round_trip(tmp_path):

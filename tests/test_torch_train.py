@@ -81,17 +81,17 @@ def test_clip_adam_matches_optax(grad_scale):
     tx = jstep.make_optimizer()
     jparams = [jnp.asarray(p) for p in params]
     state = tx.init(jparams)
-    tparams = [torch.tensor(p) for p in params]
+    tparams = [torch.tensor(p)[None] for p in params]  # the batch of one image
     opt = tstep.AdamState.zeros(tparams)
     for g in grads:
         updates, state = tx.update([jnp.asarray(x) for x in g], state, jparams)
         jparams = [p - 1e-2 * u for p, u in zip(jparams, updates)]
-        tstep.clip_adam_update(tparams, [torch.tensor(x) for x in g], opt, 1e-2)
-    assert opt.count == 3
+        tstep.clip_adam_update(tparams, [torch.tensor(x)[None] for x in g], opt, 1e-2)
+    assert opt.count.tolist() == [3]
     for t, j in zip(tparams, jparams):
-        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(t[0].numpy(), np.asarray(j), rtol=1e-5, atol=1e-7)
     for t, j in zip(opt.mu + opt.nu, list(state[1].mu) + list(state[1].nu)):
-        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5, atol=1e-9)
+        np.testing.assert_allclose(t[0].numpy(), np.asarray(j), rtol=1e-5, atol=1e-9)
 
 
 @pytest.mark.parametrize("schedule_lr", [True, False])
