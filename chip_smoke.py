@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one GPU: build, kernel checks,
 one full-width image encode through the port's entry point to a ``.cool``
-bitstream, that stream decoded back, and a batch of eight full-width images
-of mixed sizes encoded at once.
+bitstream, that stream decoded back, a batch of eight full-width images of
+mixed sizes encoded at once, and a 1080p video GOP (I, P, B) encoded to one
+stream.
 
     python3 chip_smoke.py
 
@@ -40,12 +41,14 @@ Phases, one JSON line each:
      16, 40} images, every batch size the two paths below launch (their
      warm-ups train 5, then 2 candidates per image), each image with its own
      ARM weights and latents (seeded), at the main path's pyramid and at the
-     ragged pyramid of a 37x130 image. Each row is held to the float64 and
-     f32 plain versions as above, row by row, and the batch's one launch
-     must equal, bit for bit, B single-image launches on the same rows.
-     Timed by CUDA-graph replay, beside B times the f64 bound. Both paths
-     then fail if they launched the kernel on a batch size not checked
-     here.
+     ragged pyramid of a 37x130 image; and B in {1, 2, 5} at the ragged
+     pyramid of a 1920x1080 frame (1080x1920 down to 17x30; 2,764,710
+     latents), every batch size the video path launches. Each row is held
+     to the float64 and f32 plain versions as above, row by row, and the
+     batch's one launch must equal, bit for bit, B single-image launches on
+     the same rows. Timed by CUDA-graph replay, beside B times the f64
+     bound. Every path then fails if it launched the kernel on a batch size
+     not checked here at its shapes.
   3. main path: encode a synthetic 512x768 RGB image (numpy seed 0) with the
      default DecoderConfig (arm 24,2; 40-wide synthesis; 7 grids) and the
      c3x recipe of preset_cfg/c3x.yaml, iteration counts cut (printed),
@@ -87,6 +90,25 @@ Phases, one JSON line each:
      the stage seconds, the peak memory and, from
      ``utils/profile_step.py``, kernels, device ms and busy share of a
      batched step at B = 1 and B = 8.
+  6. video path: a synthetic 3-frame 1920x1080 4:2:0 8-bit sequence (a
+     smooth texture moving 3 px right and 2 px down per frame, plus noise;
+     numpy seed 0) written to ``smoke_out/synthetic_1920x1080_420_8b.yuv``
+     and encoded through ``encode_one_run`` with the default DecoderConfig,
+     intra_period = p_period = 2 (I at display 0, P at 2, B at 1) and the
+     c3x recipe cut further than the batch path's (printed), to one stream
+     (``smoke_out/synthetic_1920x1080_420_8b.cool``). Checks: one kernel
+     launch per batched eval forward, at batch sizes checked at 1080p; each
+     frame's loss / PSNR / rate finite and its PSNR estimate above the
+     flat-mean frame's; the stream's integer decode (one-call C route)
+     equal, frame by frame and exactly, to the reconstructions the encoder
+     used as references (drift-free); each frame's decoded PSNR within 0.1
+     dB of its estimate and its real latent rate within 20 % of the
+     kernel's estimate; each frame's final eval metrics on the card equal
+     to the CPU's at the main path's tolerance, and for P / B the integer
+     warp of one synthesis output giving equal levels on both. Prints per
+     frame the stage seconds, train steps/s, ``write_s`` and bytes; the
+     decode seconds, the peak memory, and from ``utils/profile_step.py`` a
+     1080p step and eval forward of an I, a P and a B frame.
 Then a ``kernels`` JSON line, the card's name and power limit, and the
 final ``{"ok": true, "device": ...}`` line. Any failure raises (exit != 0).
 
@@ -118,8 +140,8 @@ PLANES = [(1, 1), (5, 3), (17, 33), (16, 24), (37, 130), (512, 768)]
 IMG_H, IMG_W = 512, 768
 
 # Iteration cuts of the c3x recipe for the main-path run.
-WARMUP_MAX_ITR = 100  # c3x: 400 per warm-up phase
-PHASE_MAX_ITR = (1000, 200, 100)  # c3x: 10600 (--n_itr), 1500, 1000
+WARMUP_MAX_ITR = 60  # c3x: 400 per warm-up phase
+PHASE_MAX_ITR = (600, 120, 60)  # c3x: 10600 (--n_itr), 1500, 1000
 
 # The batch path: 8 images in one 512x768 buffer, two of them smaller.
 # Batch sizes of the arm_rate_batch kernel checks: those of the main path (one
@@ -128,8 +150,21 @@ PHASE_MAX_ITR = (1000, 200, 100)  # c3x: 10600 (--n_itr), 1500, 1000
 BATCH_SIZES = (1, 2, 5, 8, 16, 40)
 BATCH_LMBDAS = (1e-3,) * 4 + (4e-3,) * 4
 BATCH_VALID_HW = {3: (480, 720), 7: (512, 704)}  # image index -> true (H, W)
-BATCH_WARMUP_MAX_ITR = 40
-BATCH_PHASE_MAX_ITR = (300, 60, 40)
+BATCH_WARMUP_MAX_ITR = 30
+BATCH_PHASE_MAX_ITR = (200, 40, 30)
+
+# The video path: a 3-frame 1920x1080 4:2:0 GOP (I, P at display 2, B at
+# display 1), one frame after another; each frame's warm-up trains 5, then 2
+# candidates.
+VIDEO_H, VIDEO_W = 1080, 1920
+VIDEO_FRAMES = 3
+VIDEO_INTRA_PERIOD = VIDEO_P_PERIOD = 2
+VIDEO_BATCH_SIZES = (1, 2, 5)
+VIDEO_LMBDA = 1e-3
+VIDEO_WARMUP_MAX_ITR = 20
+VIDEO_PHASE_MAX_ITR = (120, 24, 16)
+VIDEO_SHIFT = (3, 2)  # pixels the texture moves per frame (x, y)
+VIDEO_PROFILE_STEPS = 5  # the profiler's processing of a 1080p P step's 16,219 kernels is slow
 
 
 def emit(obj) -> None:
@@ -196,16 +231,16 @@ def host_ms(fn, n: int = 200) -> float:
     return 1e3 * statistics.median(times)
 
 
-def check_batch_sizes_seen(path: str) -> dict:
+def check_batch_sizes_seen(path: str, checked=BATCH_SIZES) -> dict:
     """The kernel's launches of the path just driven, by batch size; raises
-    if one of the sizes was not held to the plain version by the
-    ``arm_rate_batch`` checks."""
+    if one of the sizes was not held to the plain version at that path's
+    shapes by the ``arm_rate_batch`` checks (``checked``)."""
     from coolchic_tpu_torch.ops import arm_rate as ar
 
     seen = dict(sorted(ar.launches_by_batch.items()))
-    if not set(seen) <= set(BATCH_SIZES):
+    if not set(seen) <= set(checked):
         raise AssertionError(f"{path} launched the kernel on batches of {sorted(seen)} images; "
-                             f"checked against the plain version: {BATCH_SIZES}")
+                             f"checked against the plain version: {checked}")
     return {str(b): n for b, n in seen.items()}
 
 
@@ -331,11 +366,11 @@ def arm_bounds_ms(n_latents: int, dim_arm: int, n_hidden: int) -> dict:
     }
 
 
-def batch_kernel_checks(cfg, label: str) -> dict:
-    """The kernel on batches of B images of ``cfg``'s pyramid, each image
-    with its own ARM and latents: every row against its plain versions, the
-    one launch against B single launches (bit for bit), and its time.
-    Returns {B: ms}."""
+def batch_kernel_checks(cfg, label: str, sizes=BATCH_SIZES) -> dict:
+    """The kernel on batches of B in ``sizes`` images of ``cfg``'s pyramid,
+    each image with its own ARM and latents: every row against its plain
+    versions, the one launch against B single launches (bit for bit), and
+    its time. Returns {B: ms}."""
     import torch
 
     from coolchic_tpu_torch.ops import arm_rate as ar
@@ -344,7 +379,7 @@ def batch_kernel_checks(cfg, label: str) -> dict:
     dim_arm, n_hidden = cfg.dim_arm, cfg.n_hidden_layers_arm
     one = arm_bounds_ms(cfg.n_latents, dim_arm, n_hidden)
     out = {}
-    for n_images in BATCH_SIZES:
+    for n_images in sizes:
         gen = torch.Generator("cuda").manual_seed(4321 + n_images)
         rows = [arm_case_params(dim_arm, n_hidden, gen) for _ in range(n_images)]
         params = stack_params(rows)
@@ -440,6 +475,15 @@ def phase_kernel_checks() -> dict:
     out["ms_batch8"] = batch_ms[8]
     out["bound_batch8_ms"] = 8 * out["bound_f64_ms"]
     out["ms_by_batch"] = {str(b): ms for b, ms in batch_ms.items()}
+
+    # The video path's shapes: the ragged 7-grid pyramid of a 1080p frame.
+    video_cfg = CoolChicConfig(img_size=(VIDEO_H, VIDEO_W))
+    video_ms = batch_kernel_checks(video_cfg, f"{VIDEO_H}x{VIDEO_W}", VIDEO_BATCH_SIZES)
+    one = arm_bounds_ms(video_cfg.n_latents, dim_arm, n_hidden)
+    out["ms_1080p_by_batch"] = {str(b): ms for b, ms in video_ms.items()}
+    out["n_latents_1080p"] = video_cfg.n_latents
+    out["bound_1080p_ms"] = one["bound_ms"]
+    out["bound_f64_1080p_ms"] = one["bound_f64_ms"]
     return out
 
 
@@ -832,12 +876,197 @@ def phase_batch_path(single_steps_per_s: float) -> int:
         "launches_per_batched_eval_forward": launches_per_forward,
         "max_memory_allocated_bytes": peak_bytes,
     })
+    t0 = time.perf_counter()
     profiles = {b: profile_batch(b) for b in (1, n_images)}
-    emit({"phase": "batch_step_profile", **{
+    emit({"phase": "batch_step_profile", "seconds": time.perf_counter() - t0, **{
         f"{what}_b{b}": {k: lines[what][k] for k in (
             "wall_ms", "device_ms_per_iter", "kernels_per_iter", "device_busy_share",
             "profile_complete", "max_memory_allocated_bytes")}
         for b, lines in profiles.items() for what in lines}})
+    return launches
+
+
+def synthetic_video(h: int, w: int, n_frames: int, seed: int = 0):
+    """``n_frames`` frames [3, H, W] in [0, 1] (Y, U, V) from a numpy seed: a
+    smooth texture moving ``VIDEO_SHIFT`` pixels per frame, plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = []
+    for t in range(n_frames):
+        xs, ys = x - VIDEO_SHIFT[0] * t, y - VIDEO_SHIFT[1] * t
+        img = np.stack([
+            0.5 + 0.25 * np.sin(xs / 23.0) * np.cos(ys / 17.0) + 0.1 * np.sin((xs + ys) / 7.0),
+            0.5 + 0.15 * np.sin(xs / 41.0 + ys / 29.0),
+            0.5 + 0.15 * np.cos(xs / 37.0 - ys / 31.0),
+        ])
+        frames.append(np.clip(img + 0.02 * rng.standard_normal(img.shape), 0.0, 1.0)
+                      .astype(np.float32))
+    return frames
+
+
+def psnr_420(a, b) -> float:
+    """PSNR of the 4:1:1-weighted MSE of two 4:4:4 frames whose chroma is
+    4:2:0 repeated 2x2 (the loss's ``yuv420_mse``)."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    mse = (4.0 * np.mean((a[0] - b[0]) ** 2) + np.mean((a[1, ::2, ::2] - b[1, ::2, ::2]) ** 2)
+           + np.mean((a[2, ::2, ::2] - b[2, ::2, ::2]) ** 2)) / 6.0
+    return float(-10.0 * np.log10(mse + 1e-10))
+
+
+def phase_video_path() -> int:
+    """Encode a 1080p 4:2:0 GOP (I, P, B) through the entry point to one
+    stream; returns the kernel launches the encode made. Raises on any miss."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.bitstream import decode_video_bitstream, read_frame_header
+    from coolchic_tpu_torch.encode import encode_one_run
+    from coolchic_tpu_torch.io.image import convert_420_to_444, load_frame_data_from_file, write_yuv
+    from coolchic_tpu_torch.models.coolchic import coolchic_forward
+    from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.params import from_numpy_pytree
+    from coolchic_tpu_torch.train.step import eval_metrics
+    from coolchic_tpu_torch.utils.profile_step import profile_batch
+    from coolchic_tpu_torch.utils.types import DecoderConfig, RunConfig
+    from coolchic_tpu_torch.video.intercoding import inter_levels
+
+    phase_start = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    path = OUT_DIR / f"synthetic_{VIDEO_W}x{VIDEO_H}_420_8b.yuv"
+    path.unlink(missing_ok=True)  # write_yuv appends
+    for img in synthetic_video(VIDEO_H, VIDEO_W, VIDEO_FRAMES):
+        write_yuv({"y": img[:1], "u": img[1:2, ::2, ::2], "v": img[2:3, ::2, ::2]}, 8, "yuv420",
+                  str(path))
+    targets = [convert_420_to_444(load_frame_data_from_file(str(path), t).data)
+               for t in range(VIDEO_FRAMES)]  # what the encoder reads
+
+    enc, reductions = cut_recipe(VIDEO_WARMUP_MAX_ITR, VIDEO_PHASE_MAX_ITR)
+    enc.intra_period, enc.p_period = VIDEO_INTRA_PERIOD, VIDEO_P_PERIOD
+    dec = DecoderConfig()
+    emit({"phase": "video_path_config", "input": path.name, "frames": VIDEO_FRAMES,
+          "img_size": [VIDEO_H, VIDEO_W], "intra_period": VIDEO_INTRA_PERIOD,
+          "p_period": VIDEO_P_PERIOD, "shift_px_per_frame": list(VIDEO_SHIFT),
+          "lmbda": VIDEO_LMBDA, "dec_cfg": vars(dec),
+          "candidates": [wp.candidates for wp in enc.recipe.warmup.phases], "reduced": reductions})
+
+    cool = OUT_DIR / f"synthetic_{VIDEO_W}x{VIDEO_H}_420_8b.cool"
+    cool.unlink(missing_ok=True)
+    run_cfg = RunConfig(input=path, lmbda=VIDEO_LMBDA, workdir=OUT_DIR / "video", output=cool,
+                        enc_cfg=enc, dec_cfg=dec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ar.launch_count = 0
+    ar.launches_by_batch.clear()
+    t0 = time.perf_counter()
+    run = encode_one_run(run_cfg, seed=0, device="cuda")
+    encode_s = time.perf_counter() - t0
+    launches = ar.launch_count
+    launches_by_batch = check_batch_sizes_seen("the video path", VIDEO_BATCH_SIZES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    venc = run.result
+    cfg = dec.to_coolchic_config((VIDEO_H, VIDEO_W))
+    launches_per_forward = ar.plane_table(tuple(cfg.latent_shapes)).n_launches
+    coded = [(venc.coding_structure.get_frame_from_coding_order(int(k)), e)
+             for k, e in sorted(venc.all_frame_encoders.items(), key=lambda kv: int(kv[0]))]
+    n_batched_evals = sum(e.stats.n_batched_eval_forwards for _, e in coded)
+    if launches != n_batched_evals * launches_per_forward:
+        raise AssertionError(f"{launches} kernel launches for {n_batched_evals} batched eval "
+                             "forwards")
+    if [f.frame_type for f, _ in coded] != ["I", "P", "B"]:
+        raise AssertionError(f"coding order {[(f.display_order, f.frame_type) for f, _ in coded]}")
+
+    # The stream, and its integer decode against the encoder's references.
+    data = cool.read_bytes()
+    if data != run.bitstream or run.row["rate_bpp"] != 8 * len(data) / (cfg.n_pixels * VIDEO_FRAMES):
+        raise AssertionError("the file written by --output is not the run's stream")
+    if data != venc.to_bitstream():
+        raise AssertionError("writing the GOP again gave different bytes")
+    t0 = time.perf_counter()
+    decoded, info = decode_video_bitstream(data)
+    decode_s = time.perf_counter() - t0
+    if "timings" not in info or len(decoded) != VIDEO_FRAMES:
+        raise AssertionError("the integer decode did not take the one-call C route")
+
+    per_frame = []
+    for frame, e in coded:
+        disp, cfg_f = frame.display_order, venc.frame_cfg(frame.frame_type)
+        target = targets[disp]
+        line = {"display": disp, "coding": frame.coding_order, "type": frame.frame_type,
+                "depth": frame.depth, "lmbda": e.manager.lmbda, "loss": e.manager.best_loss,
+                "psnr_db_estimate": e.psnr_db, "rate_latent_bpp": e.rate_latent_bpp,
+                "flat_mean_psnr_db": psnr_420(target, target.mean(axis=(1, 2), keepdims=True))}
+        for k in ("loss", "psnr_db_estimate", "rate_latent_bpp"):
+            if not math.isfinite(line[k]):
+                raise AssertionError(f"frame {disp}: {k} is not finite: {line}")
+        if not line["psnr_db_estimate"] > line["flat_mean_psnr_db"]:
+            raise AssertionError(f"frame {disp}: PSNR estimate below the flat-mean frame: {line}")
+
+        # Drift-free: the decoder's frame is the reference the encoder used.
+        if not np.array_equal(decoded[disp], e.decoded):
+            n = int(np.count_nonzero(decoded[disp] != e.decoded))
+            raise AssertionError(f"frame {disp}: {n} decoded samples differ from the encoder's")
+        line["psnr_db"] = psnr_420(decoded[disp], target)
+        if abs(line["psnr_db"] - e.psnr_db) >= 0.1:
+            raise AssertionError(f"frame {disp}: decoded PSNR vs estimate: {line}")
+        fh = read_frame_header(e.frame_bytes)
+        line["n_bytes"] = len(e.frame_bytes)
+        line["real_latent_bpp"] = 8 * sum(fh.n_bytes_per_latent) / cfg.n_pixels
+        if e.rate_latent_bpp > 0.05 and abs(
+                line["real_latent_bpp"] - e.rate_latent_bpp) / e.rate_latent_bpp >= 0.2:
+            raise AssertionError(f"frame {disp}: real latent rate vs estimate: {line}")
+
+        # The final params on the card (ARM kernel) and on the CPU (plain ARM),
+        # against the references the encoder trained on.
+        target_ex = np.concatenate([target, *venc._refs_for(frame)])
+        on = {d: (from_numpy_pytree(e.params, d), torch.tensor(target_ex, device=d))
+              for d in ("cuda", "cpu")}
+        m = {d: eval_metrics(p, cfg_f, t, e.manager.lmbda) for d, (p, t) in on.items()}
+        cross = {k: (getattr(m["cuda"], k).item(), getattr(m["cpu"], k).item())
+                 for k in ("loss", "psnr_db", "rate_latent_bpp")}
+        bpp = cross["rate_latent_bpp"]
+        if abs(bpp[0] - bpp[1]) > 1e-4 * bpp[1] or abs(cross["psnr_db"][0] - cross["psnr_db"][1]) > 0.01:
+            raise AssertionError(f"frame {disp}: card and CPU differ: {cross}")
+        line["card_vs_cpu_eval"] = cross
+        if frame.frame_type != "I":  # one synthesis output, the integer warp on both
+            with torch.no_grad():
+                raw = coolchic_forward(on["cuda"][0], cfg_f, training=False)[0][None]
+            refs = [torch.tensor(r[None], device="cuda") for r in venc._refs_for(frame)] + [None]
+            lv = {d: inter_levels(raw.to(d), refs[0].to(d),
+                                  None if refs[1] is None else refs[1].to(d), cfg_f.flow_gain)
+                  for d in ("cuda", "cpu")}
+            if not torch.equal(lv["cuda"].cpu(), lv["cpu"]):
+                raise AssertionError(f"frame {disp}: integer warp levels differ card vs CPU")
+            line["inter_levels_card_equal_cpu"] = True
+
+        stages = e.stats.stage_seconds
+        train_s = sum(v for k, v in stages.items() if k == "warmup" or k.startswith("phase_"))
+        line.update({"stage_seconds": stages, "n_train_steps": e.stats.n_train_steps,
+                     "train_steps_per_s": e.stats.n_train_steps / train_s,
+                     "n_eval_forwards": e.stats.n_eval_forwards,
+                     "n_batched_eval_forwards": e.stats.n_batched_eval_forwards,
+                     "write_s": stages["write"], "frame_seconds": e.manager.total_training_time_sec})
+        per_frame.append(line)
+
+    emit({"phase": "video_path", "row": run.row, "frames": per_frame, "encode_seconds": encode_s,
+          "checks_seconds": time.perf_counter() - phase_start - encode_s,
+          "n_bytes": len(data), "decode_s": decode_s, "decode_c_timings": info["timings"],
+          "drift_free": True, "arm_rate_launches": launches,
+          "arm_rate_launches_by_batch": launches_by_batch,
+          "launches_per_eval_forward": launches_per_forward,
+          "max_memory_allocated_bytes": peak_bytes})
+    t0 = time.perf_counter()
+    profiles = {ft: profile_batch(1, ft, (VIDEO_H, VIDEO_W), VIDEO_PROFILE_STEPS)
+                for ft in ("I", "P", "B")}
+    emit({"phase": "video_step_profile", "steps": VIDEO_PROFILE_STEPS,
+          "seconds": time.perf_counter() - t0, **{
+        f"{what}_{ft}": {k: lines[what][k] for k in (
+            "wall_ms", "device_ms_per_iter", "kernels_per_iter", "device_busy_share",
+            "profile_complete", "max_memory_allocated_bytes")}
+        for ft, lines in profiles.items() for what in lines}})
     return launches
 
 
@@ -856,19 +1085,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    phase_build()
-    pyramid = phase_kernel_checks()
-    launches, run, cfg, img, cool, single_steps_per_s = phase_main_path()
-    phase_bitstream(run, cfg, img, cool)
-    batch_launches = phase_batch_path(single_steps_per_s)
+    phase_seconds = {}
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        result = fn(*args)
+        phase_seconds[name] = time.perf_counter() - start
+        return result
+
+    timed("build", phase_build)
+    pyramid = timed("kernel_checks", phase_kernel_checks)
+    launches, run, cfg, img, cool, single_steps_per_s = timed("main_path", phase_main_path)
+    timed("bitstream", phase_bitstream, run, cfg, img, cool)
+    batch_launches = timed("batch_path", phase_batch_path, single_steps_per_s)
+    video_launches = timed("video_path", phase_video_path)
     emit({"kernels": [{
         "name": "arm_rate",
         "route": "cuda",
         "source": "coolchic_tpu_torch/csrc/arm_rate.cu",
         "replaces": "coolchic_tpu/ops/pallas_arm.py:86",
-        "launches": launches + batch_launches,
+        "launches": launches + batch_launches + video_launches,
         "launches_main_path": launches,
         "launches_batch_path": batch_launches,
+        "launches_video_path": video_launches,
         "max_abs_err": pyramid["max_abs_err"],
         "ms": pyramid["ms"],
         "plain_ms": pyramid["plain_ms"],
@@ -880,8 +1119,12 @@ def main() -> int:
         "ms_batch8": pyramid["ms_batch8"],
         "bound_batch8_ms": pyramid["bound_batch8_ms"],
         "ms_by_batch": pyramid["ms_by_batch"],
+        "n_latents_1080p": pyramid["n_latents_1080p"],
+        "ms_1080p_by_batch": pyramid["ms_1080p_by_batch"],
+        "bound_1080p_ms": pyramid["bound_1080p_ms"],
+        "bound_f64_1080p_ms": pyramid["bound_f64_1080p_ms"],
         "library_ms": None,  # no single PyTorch call computes this function
-    }], "seconds": time.perf_counter() - t0})
+    }], "seconds": time.perf_counter() - t0, "phase_seconds": phase_seconds})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -1,9 +1,9 @@
 """Image I/O for the port: PNG and PPM (8-16 bit) into [3, H, W] float, and
 planar YUV (420 / 444) files.
 
-Counterpart of ``coolchic_tpu/io/image.py``. The encoder reads RGB only
-(``load_frame_data_from_file``); the YUV functions serve the decoder, which
-writes the frames of a decoded video stream.
+Counterpart of ``coolchic_tpu/io/image.py``. The encoder reads a PNG or PPM
+image or one frame of a ``.yuv`` video (``load_frame_data_from_file``); the
+decoder writes PNG, PPM and the frames of a decoded video stream.
 """
 
 from __future__ import annotations
@@ -24,11 +24,13 @@ FrameArray = Union[np.ndarray, Dict[str, np.ndarray]]
 @dataclass
 class FrameData:
     bitdepth: int
-    frame_data_type: str  # "rgb"
-    data: np.ndarray  # [3, H, W] float32 in [0, 1]
+    frame_data_type: str  # "rgb" | "yuv444" | "yuv420"
+    data: FrameArray  # [3, H, W] float32 in [0, 1]; a dict of planes for 4:2:0
 
     @property
     def img_size(self) -> Tuple[int, int]:
+        if self.frame_data_type == "yuv420":
+            return tuple(self.data["y"].shape[-2:])
         return tuple(self.data.shape[-2:])
 
 
@@ -138,12 +140,20 @@ def convert_420_to_444(yuv420: Dict[str, np.ndarray]) -> np.ndarray:
     return np.concatenate([yuv420["y"], u, v], axis=0)
 
 
-def load_frame_data_from_file(file_path: str) -> FrameData:
-    """Load an RGB frame from .png or .ppm (the encoder's input)."""
-    if file_path.endswith(".png"):
+def load_frame_data_from_file(file_path: str, idx_display_order: int = 0) -> FrameData:
+    """Load a frame from .png / .ppm, or frame ``idx_display_order`` of a .yuv
+    file: 8 bit with an "_8b" tag in the name, else 10; 4:2:0 with a "420"
+    tag, else 4:4:4."""
+    if file_path.endswith(".yuv"):
+        bitdepth = 8 if "_8b" in file_path else 10
+        frame_data_type = "yuv420" if "420" in file_path else "yuv444"
+        data = read_yuv(file_path, idx_display_order, frame_data_type, bitdepth)
+    elif file_path.endswith(".png"):
+        frame_data_type = "rgb"
         data, bitdepth = read_png(file_path)
     elif file_path.endswith(".ppm"):
+        frame_data_type = "rgb"
         data, bitdepth = read_ppm(file_path)
     else:
-        raise ValueError(f"Expected .png or .ppm (.yuv inputs wait for video encoding), found {file_path}")
-    return FrameData(bitdepth, "rgb", data)
+        raise ValueError(f"Expected .png/.ppm/.yuv, found {file_path}")
+    return FrameData(bitdepth, frame_data_type, data)

@@ -17,6 +17,8 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from coolchic_tpu_torch.models.quantizer import clip_like_jax
+
 MASK_SIZE = 9
 PAD = (MASK_SIZE - 1) // 2  # 4
 
@@ -123,7 +125,7 @@ def arm_apply(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ARM MLP on [M, C] contexts: residual layers ``relu(x W^T + b + x)``,
     then the 2-wide head. Returns (mu, scale, log_scale), each [M], with
-    ``scale = exp(clamp(log_scale - 4, -4.6, 5))``. With a leading [B] axis
+    ``scale = exp(clip(log_scale - 4, -4.6, 5))``. With a leading [B] axis
     on the contexts and on every weight and bias, B ARMs run at once
     (batched matrix products)."""
     x = ctx
@@ -134,7 +136,7 @@ def arm_apply(
     raw = linear(x, head["weight"], head["bias"])
     mu = raw[..., 0]
     log_scale = raw[..., 1]
-    scale = torch.exp(torch.clamp(log_scale - 4.0, -4.6, 5.0))
+    scale = torch.exp(clip_like_jax(log_scale - 4.0, -4.6, 5.0))
     return mu, scale, log_scale
 
 
@@ -145,9 +147,8 @@ def laplace_cdf(x: torch.Tensor, mu: torch.Tensor, scale: torch.Tensor) -> torch
 
 def latent_rate_bits(y_hat: torch.Tensor, mu: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """-log2(CDF(y + 1/2) - CDF(y - 1/2)), the probability clamped at 2^-16."""
-    proba = torch.clamp(
-        laplace_cdf(y_hat + 0.5, mu, scale) - laplace_cdf(y_hat - 0.5, mu, scale),
-        min=2.0**-16,
+    proba = clip_like_jax(
+        laplace_cdf(y_hat + 0.5, mu, scale) - laplace_cdf(y_hat - 0.5, mu, scale), 2.0**-16
     )
     return -torch.log2(proba)
 

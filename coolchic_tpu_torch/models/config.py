@@ -1,8 +1,8 @@
 """Static model configuration of one Cool-chic frame decoder.
 
-Counterpart of ``coolchic_tpu/models/config.py`` (I frames only; the P/B
-fields wait for the video slice). Everything that fixes tensor shapes lives
-here; the weights live in the parameter dict of ``models/coolchic.py``.
+Counterpart of ``coolchic_tpu/models/config.py``. Everything that fixes
+tensor shapes lives here; the weights live in the parameter dict of
+``models/coolchic.py``.
 """
 
 from __future__ import annotations
@@ -27,8 +27,14 @@ class CoolChicConfig:
         encoder_gain: latent multiplier applied before quantization.
         ups_k_size: even kernel size of the x2 upsamplers.
         ups_preconcat_k_size: odd kernel size of the pre-concat filters.
-        out_channels: synthesized channels (3).
+        out_channels: synthesized channels: 3 for an I frame, 6 for a P frame
+            and 9 for a B frame (residue, then flows and gains).
         frame_data_type: "rgb" | "yuv444" | "yuv420" (selects the loss).
+        frame_type: "I" | "P" | "B"; P and B frames motion-compensate their
+            reference frame(s) with the synthesized flows
+            (``video/intercoding.py``).
+        flow_gain: integer scale of the synthesized flows (written to the
+            frame header).
         frozen_zero_grids: latent grids pinned to zero for the whole encode.
     """
 
@@ -47,6 +53,8 @@ class CoolChicConfig:
     ups_preconcat_k_size: int = 7
     out_channels: int = 3
     frame_data_type: str = "rgb"
+    frame_type: str = "I"
+    flow_gain: int = 1
     frozen_zero_grids: Tuple[int, ...] = ()
 
     def __post_init__(self):
@@ -67,6 +75,12 @@ class CoolChicConfig:
             raise ValueError(
                 f"Pre-concat kernel size must be odd, found {self.ups_preconcat_k_size}"
             )
+        if self.frame_type not in ("I", "P", "B"):
+            raise ValueError(f"frame_type must be I, P or B, found {self.frame_type}")
+        want = {"P": 6, "B": 9}.get(self.frame_type)
+        if want is not None and self.out_channels != want:
+            raise ValueError(f"{self.frame_type} frames synthesize {want} channels, "
+                             f"found out_channels = {self.out_channels}")
         self.parsed_synthesis_layers()
 
     @property

@@ -1,7 +1,8 @@
 """The Cool-chic frame decoder as a function of a parameter dict.
 
-Counterpart of ``coolchic_tpu/models/coolchic.py`` for I frames: quantize
-the gained latents, measure their rate with the ARM, upsample, synthesize.
+Counterpart of ``coolchic_tpu/models/coolchic.py``: quantize the gained
+latents, measure their rate with the ARM, upsample, synthesize; for a P or B
+frame, motion-compensate the reference frames with the synthesized flows.
 In eval mode the rate comes from ``ops.arm_rate``, which launches the CUDA
 kernel on a CUDA tensor (and runs the plain ARM on a CPU tensor); ``mu`` and
 ``log_scale`` are then None. In training mode the plain ARM of
@@ -31,7 +32,7 @@ import torch
 from coolchic_tpu_torch.models.arm import arm_rate_plain, init_arm_params
 from coolchic_tpu_torch.models.config import CoolChicConfig
 from coolchic_tpu_torch.models.masking import level_valid_hw, valid_mask_2d
-from coolchic_tpu_torch.models.quantizer import quantize
+from coolchic_tpu_torch.models.quantizer import clip_like_jax, quantize
 from coolchic_tpu_torch.models.synthesis import init_synthesis_params, synthesis_apply
 from coolchic_tpu_torch.models.upsampling import init_upsampling_params, upsampling_apply
 from coolchic_tpu_torch.ops.arm_rate import arm_rate_pyramid, arm_rate_pyramid_batch
@@ -159,9 +160,19 @@ def frame_forward(
     noise: Optional[Sequence[torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
     valid_hw: Optional[torch.Tensor] = None,
+    refs: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
-    """I-frame forward: ``coolchic_forward``, then in eval mode the
-    round-trip to ``2^bitdepth - 1`` integer levels, then a clamp to [0, 1]."""
+    """Frame forward: ``coolchic_forward``, then the decoded frame in [0, 1].
+
+    I frame: the synthesis output, in eval mode rounded to ``2^bitdepth - 1``
+    levels. P / B frame (``cfg.frame_type``): the synthesized flows and gains
+    motion-compensate the reference frame(s) ``refs`` ([3, H, W] each, or
+    [B, 3, H, W] for a batch). In training the float warp
+    (``video/intercoding.py::inter_predict``); in eval the decoder's
+    fixed-point warp on the 12-frac output and the stored references
+    (``inter_levels``), so that the estimate is what the stream decodes to.
+    Then a clip to [0, 1] with JAX's gradient at a tie.
+    """
     raw_out, rate, extras = coolchic_forward(
         params,
         cfg,
@@ -175,8 +186,27 @@ def frame_forward(
         generator=generator,
         valid_hw=valid_hw,
     )
-    decoded = raw_out
-    if not training:
-        max_dynamic = 2.0**bitdepth - 1.0
-        decoded = torch.round(decoded * max_dynamic) / max_dynamic
-    return torch.clamp(decoded, 0.0, 1.0), rate, extras
+    max_dynamic = 2.0**bitdepth - 1.0
+    if cfg.frame_type == "I":
+        decoded = raw_out
+        if not training:
+            decoded = torch.round(decoded * max_dynamic) / max_dynamic
+    else:
+        # Imported here: the video package's encoder imports this module.
+        from coolchic_tpu_torch.video.intercoding import inter_levels, inter_predict
+
+        n_refs = 2 if cfg.frame_type == "B" else 1
+        if refs is None or len(refs) < n_refs:
+            raise ValueError(f"a {cfg.frame_type} frame forward needs {n_refs} reference frame(s)")
+        batched = raw_out.dim() == 4
+        raw = raw_out if batched else raw_out[None]
+        ref0, ref1 = [(r if batched else r[None]) for r in refs[:n_refs]] + [None] * (2 - n_refs)
+        if training:
+            decoded = inter_predict(raw, ref0, ref1, cfg.flow_gain)
+        else:
+            levels = inter_levels(raw, ref0, ref1, cfg.flow_gain, bitdepth)
+            # A true division: a CUDA division by a Python number multiplies
+            # by its reciprocal, an ulp off on some levels.
+            decoded = levels.to(raw.dtype) / torch.full((), max_dynamic, device=raw.device)
+        decoded = decoded if batched else decoded[0]
+    return clip_like_jax(decoded, 0.0, 1.0), rate, extras

@@ -10,6 +10,7 @@ packages the same numbers.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -29,6 +30,22 @@ def kumaraswamy_noise(uniform_noise: torch.Tensor, a: float) -> torch.Tensor:
     """U(0, 1) -> Kumaraswamy(a, b(a)) shifted to (-1/2, 1/2), mode at 1/2."""
     b = (2.0**a * (a - 1.0) + 1.0) / a
     return (1.0 - (1.0 - uniform_noise) ** (1.0 / b)) ** (1.0 / a) - 0.5
+
+
+def clip_like_jax(x: torch.Tensor, lo: float, hi: Optional[float] = None) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)`` (no upper bound when ``hi`` is None) with its
+    gradient: where ``x`` equals a bound the gradient is split 0.5 / 0.5
+    between ``x`` and the bound, so ``x`` gets half of it (``torch.clamp``
+    passes all of it). Use it where the JAX package clips on a
+    differentiable path."""
+    x = torch.maximum(x, _bound(lo, x.dtype, x.device))
+    return x if hi is None else torch.minimum(x, _bound(hi, x.dtype, x.device))
+
+
+@lru_cache(maxsize=64)
+def _bound(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A 0-dim constant, made once per device (no copy or launch per call)."""
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
 def draw_noise(

@@ -87,7 +87,11 @@ def warmup(
             cand, n_cand = best_candidates(cand, losses, n_images, wp.candidates), wp.candidates
 
         def per_candidate(x, n=n_cand):
-            return None if x is None else x.repeat_interleave(n, dim=0)
+            if x is None:
+                return None
+            if n_images == 1:  # the candidates share the target (and references): a view
+                return x.expand(n, *x.shape[1:])
+            return x.repeat_interleave(n, dim=0)
 
         gen = make_generator(device, *seeds, idx_phase + 1)
         cand, logs = run_phase_batch(
@@ -134,6 +138,8 @@ def encode_frame_batch(
     Args:
         targets: [B, C, H, W] images in [0, 1]. For mixed sizes, pad each
             into the common buffer and pass its true size in ``valid_hws``.
+            A P / B frame (``cfg.frame_type``) carries its decoded
+            reference(s) as channels 3:6 (and 6:9).
         lmbdas: [B] rate weights, one per image.
         seeds: B integers, one per image (initial weights, noise).
         valid_hws: optional integer [B, 2] true (H, W) per image: the loss
@@ -191,7 +197,8 @@ def encode_frame_with_quant_info(
     valid_hw: Optional[torch.Tensor] = None,
 ) -> Tuple[EncodeResult, Optional[Dict[str, ModuleQuantInfo]]]:
     """Encode one image: the batch of one. ``target`` is [3, H, W] in [0, 1]
-    on the device the encode runs on.
+    on the device the encode runs on ([6 | 9, H, W] for a P / B frame: the
+    target, then its references).
 
     Returns (EncodeResult, infos): infos holds the q-steps and exp-Golomb
     orders per module that the bitstream writer needs, or None when the

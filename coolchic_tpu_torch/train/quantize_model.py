@@ -10,7 +10,8 @@ exp-Golomb order per parameter family. The search runs on a batch of B
 decoders (every leaf with a leading [B] axis): the grid of pairs is shared,
 one eval forward tries a pair on all B, and the argmin is per image. Pairs
 run one after another; the losses stay on the device until the module's
-argmin. One image is the batch of one.
+argmin. One image is the batch of one. A P / B frame's targets carry its
+references (``train/step.py::split_target``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from coolchic_tpu_torch.models.coolchic import frame_forward
 from coolchic_tpu_torch.models.config import CoolChicConfig
 from coolchic_tpu_torch.params import tree_map
 from coolchic_tpu_torch.train.loss import loss_function
-from coolchic_tpu_torch.train.step import row_views
+from coolchic_tpu_torch.train.step import row_views, split_target
 
 Params = Dict
 
@@ -116,6 +117,7 @@ def quantize_module(
     Returns the params with that module quantized (each image at its own
     pair), the choice per image, and the number of batched eval forwards."""
     device = targets.device
+    targets, refs = split_target(cfg, targets)
     w_steps = np.asarray(Q_STEPS[module]["weight"], np.float32)
     b_steps = np.asarray(Q_STEPS[module]["bias"], np.float32)
     weights, biases = module_leaves(params, module)
@@ -140,7 +142,7 @@ def quantize_module(
             bits_b, cnt_b = torch.min(expgol_bits_all_counts(int_b), dim=-1)
 
         trial = rebuild_module(params, module, qw, qb)
-        decoded, rate, _ = frame_forward(trial, cfg, training=False, valid_hw=valid_hws)
+        decoded, rate, _ = frame_forward(trial, cfg, training=False, valid_hw=valid_hws, refs=refs)
         nn_bits = bits_w + bits_b + other_nn_rate_bits
         loss = loss_function(decoded, rate, targets, lmbdas, nn_bits, valid_hw=valid_hws).loss
         losses.append(torch.where(valid, loss, torch.full_like(loss, float("inf"))))

@@ -76,14 +76,27 @@ def phase_geometry(phase: TrainerPhase) -> Tuple[int, int, int, float]:
     return freq, phase.max_itr // freq, phase.max_itr % freq, max(phase.max_itr / phase.freq_valid, 1)
 
 
+def split_target(cfg: CoolChicConfig, target: torch.Tensor):
+    """A P / B frame's target carries its decoded reference frame(s) as
+    channels 3:6 (and 6:9), so that the engine keeps one ``targets``
+    argument; split them off: (target [..., 3, H, W], refs or None)."""
+    if cfg.frame_type == "I":
+        return target, None
+    if cfg.frame_type == "P":
+        return target[..., :3, :, :], (target[..., 3:6, :, :],)
+    return target[..., :3, :, :], (target[..., 3:6, :, :], target[..., 6:9, :, :])
+
+
 @torch.no_grad()
 def eval_metrics(
     params: Params, cfg: CoolChicConfig, target: torch.Tensor, lmbda: float | torch.Tensor,
     rate_nn_bits: float | torch.Tensor = 0.0, valid_hw: Optional[torch.Tensor] = None,
 ) -> LossOutput:
     """Eval-mode test: hardround, no noise, bitdepth rounding. One image, or
-    a batch (stacked params, [B, C, H, W] targets: every metric is [B])."""
-    decoded, rate, _ = frame_forward(params, cfg, training=False, valid_hw=valid_hw)
+    a batch (stacked params, [B, C, H, W] targets: every metric is [B]).
+    A P / B target carries its references (``split_target``)."""
+    target, refs = split_target(cfg, target)
+    decoded, rate, _ = frame_forward(params, cfg, training=False, valid_hw=valid_hw, refs=refs)
     return loss_function(
         decoded, rate, target, lmbda, rate_nn_bits, frame_data_type=cfg.frame_data_type,
         valid_hw=valid_hw,
@@ -180,6 +193,7 @@ def train_step(
     leaves of the stacked ``params`` that require grad). The noise is one
     draw per grid for the whole batch. Returns the [B] training losses (not
     synchronised)."""
+    targets, refs = split_target(cfg, targets)
     decoded, rate, _ = frame_forward(
         params,
         cfg,
@@ -190,6 +204,7 @@ def train_step(
         training=True,
         generator=generator,
         valid_hw=valid_hws,
+        refs=refs,
     )
     loss = loss_function(decoded, rate, targets, lmbdas, frame_data_type=cfg.frame_data_type,
                          valid_hw=valid_hws).loss
@@ -236,7 +251,8 @@ def run_phase_batch(
     valid_hws: Optional[torch.Tensor] = None,
 ) -> Tuple[Params, BatchPhaseLogs]:
     """Train B decoders (``params`` with a leading [B] axis on every leaf) on
-    ``targets`` ([B, C, H, W] in [0, 1]) for one phase, image b at rate weight
+    ``targets`` ([B, C, H, W] in [0, 1]; a P / B frame's with its references
+    as further channels, ``split_target``) for one phase, image b at rate weight
     ``lmbdas[b]`` and, with ``valid_hws`` ([B, 2]), at its true size inside
     the buffer. Returns the best params seen per image (eval-mode loss) and
     their metrics; the input params are left untouched. The host waits for

@@ -1,16 +1,20 @@
 """Where the time of one training step and one eval forward goes, on a GPU.
 
-    python -m coolchic_tpu_torch.utils.profile_step [B ...]
+    python -m coolchic_tpu_torch.utils.profile_step [--frame_type I|P|B]
+        [--img_size HxW] [B ...]
 
 For each batch size B given (default: 1), builds B default decoders (arm
-24,2; 40-wide synthesis; 7 grids) at 512x768 with random weights (seeded),
-stacked, runs 20 batched training steps of the c3x first phase (softround +
-gaussian noise) and as many batched eval forwards, and prints one JSON line
+24,2; 40-wide synthesis; 7 grids) at 512x768 (or ``--img_size``) with random
+weights (seeded), stacked, runs 20 batched training steps of the c3x first
+phase (softround + gaussian noise) and as many batched eval forwards, and
+prints one JSON line
 per measurement: wall time per step and per eval
 forward (host clock around synchronised work), then the device time by
 kernel from ``torch.profiler`` over a window of as many of each (after one
 unrecorded warm-up iteration of the profiler), with the share of the wall
-time the device was busy. The eval-forward line also gives the ARM kernel's
+time the device was busy. A P or B frame (``--frame_type``) synthesizes 6 or
+9 channels and warps random references (float warp in the step, the
+fixed-point warp in the eval forward). The eval-forward line also gives the ARM kernel's
 launches as the wrapper counted them over the window beside the profiler's
 count (``profile_complete``: the profiler saw every launch), and the peak
 device memory of the batch size.
@@ -18,6 +22,7 @@ device memory of the batch size.
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -54,16 +59,27 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step needs a GPU", file=sys.stderr)
         return 1
+    p = argparse.ArgumentParser(description="profile one train step and one eval forward")
+    p.add_argument("--frame_type", choices=["I", "P", "B"], default="I")
+    p.add_argument("--img_size", default=f"{H}x{W}", help="HxW")
+    p.add_argument("batch", type=int, nargs="*")
+    args = p.parse_args(argv)
+    img_size = tuple(int(v) for v in args.img_size.split("x"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for batch in [int(a) for a in (sys.argv[1:] if argv is None else argv)] or [1]:
-        profile_batch(batch)
+    for batch in args.batch or [1]:
+        profile_batch(batch, args.frame_type, img_size)
     return 0
 
 
-def profile_batch(batch: int) -> dict:
-    """Profile a batch of ``batch`` decoders; prints one JSON line for the
-    train step and one for the eval forward, and returns both by name."""
+def profile_batch(batch: int, frame_type: str = "I", img_size=(H, W), steps: int = STEPS) -> dict:
+    """Profile a batch of ``batch`` decoders of ``frame_type`` frames of
+    ``img_size`` over ``steps`` iterations of each; prints one JSON line for
+    the train step and one for the eval forward, and returns both by name.
+    The profiler's processing grows with the kernels it saw (a P step at
+    1080p launches ~16,000), so a caller short of time takes fewer steps."""
+    from dataclasses import replace
+
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from coolchic_tpu_torch.models.coolchic import init_coolchic_params
@@ -74,7 +90,9 @@ def profile_batch(batch: int) -> dict:
     from coolchic_tpu_torch.utils.types import DecoderConfig
 
     device = torch.device("cuda")
-    cfg = DecoderConfig().to_coolchic_config((H, W))
+    n_refs = "IPB".index(frame_type)
+    cfg = DecoderConfig().to_coolchic_config(img_size, out_channels=3 * (n_refs + 1))
+    cfg = replace(cfg, frame_type=frame_type)
     phase = load_preset("c3x").all_phases[0]
     gen = make_generator(device, 0)
     params = stack_params(
@@ -83,7 +101,8 @@ def profile_batch(batch: int) -> dict:
     for t in tensors:
         t.requires_grad_(True)
     opt = AdamState.zeros(tensors)
-    target = torch.rand(batch, 3, H, W, generator=gen, device=device)
+    # A P / B frame's references ride the target (train/step.py::split_target).
+    target = torch.rand(batch, 3 * (n_refs + 1), *img_size, generator=gen, device=device)
     lmbdas = torch.full((batch,), 1e-3, device=device)
     torch.cuda.reset_peak_memory_stats()
 
@@ -99,22 +118,23 @@ def profile_batch(batch: int) -> dict:
             fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(STEPS):
+        for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / STEPS * 1e3
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=STEPS, repeat=1)) as prof:
-            for i in range(1 + STEPS):
+                     schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+            for i in range(1 + steps):
                 if i == 1:
                     ar.launch_count = 0
                 fn()
-                if i in (0, STEPS):  # the warm-up's kernels end before the window
+                if i in (0, steps):  # the warm-up's kernels end before the window
                     torch.cuda.synchronize()
                 prof.step()
-        table = _device_table(prof, STEPS)
+        table = _device_table(prof, steps)
         lines[name] = {
-            "what": name, "batch": batch, "img_size": [H, W], "wall_ms": wall_ms,
+            "what": name, "batch": batch, "frame_type": frame_type, "img_size": list(img_size),
+            "steps": steps, "wall_ms": wall_ms,
             "device_busy_share": table["device_ms_per_iter"] / wall_ms, **table,
             "arm_rate_launches": ar.launch_count,
             "profile_complete": table["arm_rate_calls"] == ar.launch_count,

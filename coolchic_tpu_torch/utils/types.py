@@ -1,6 +1,6 @@
-"""Configuration of one image encode run.
+"""Configuration of one encode run (an image, or a ``.yuv`` video).
 
-Counterpart of the image-CLI part of ``coolchic_tpu/utils/types.py``
+Counterpart of the CLI part of ``coolchic_tpu/utils/types.py``
 (``DecoderConfig``, ``EncoderConfig``, ``RunConfig``, ``UserConfig``), as
 plain dataclasses. Decoder configs are read from ``cfg/dec/*.yaml``; the
 training recipe from ``preset_cfg/*.yaml`` (``train/presets.py``). A
@@ -78,17 +78,20 @@ class DecoderConfig:
 @dataclass
 class EncoderConfig:
     """Training recipe of a run: a named preset of ``preset_cfg/`` whose
-    first phase lasts ``n_itr`` iterations when given."""
+    first phase lasts ``n_itr`` iterations when given; for a ``.yuv`` input,
+    the coding structure of its GOP (``intra_period`` inter frames after the
+    intra frame, P frames every ``p_period``; 0 for ``max(intra_period, 1)``)."""
 
-    # Keys of the JAX package's YAML files (``cfg/enc/*.yaml``) that an image
-    # encode does not use: a video's coding structure, and a learning rate
-    # that the recipe's phases set themselves. Read and dropped.
-    IGNORED_KEYS = ("intra_period", "p_period", "start_lr")
+    # A key of the JAX package's YAML files (``cfg/enc/*.yaml``) that nothing
+    # reads: the recipe's phases set their learning rates. Read and dropped.
+    IGNORED_KEYS = ("start_lr",)
 
     std_recipe_name: str = "c3x"
     n_itr: Optional[int] = None
     n_train_loops: int = 1
     recipe: Optional[Preset] = None
+    intra_period: int = 0
+    p_period: int = 0
 
     def __post_init__(self):
         if self.recipe is None:

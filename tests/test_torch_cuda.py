@@ -1,6 +1,7 @@
-"""The port on a GPU: the ARM kernel against its plain version, and the eval
-forward and the bitstream's float decode on the card against the CPU. Every test here needs an NVIDIA GPU
-and skips without one. The file imports no JAX, so it runs where JAX is not
+"""The port on a GPU: the ARM kernel against its plain version (the video
+path's 1080p pyramid included), the eval forward (I, P and B frames, the
+fixed-point warp) and the bitstream's float decode on the card against the
+CPU. Every test here needs an NVIDIA GPU and skips without one. The file imports no JAX, so it runs where JAX is not
 installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -240,3 +241,82 @@ def test_float_decode_on_the_card_matches_the_cpu(cuda, name):
     if name != "two_ft_fallback":
         integer, _ = decode_bitstream(data, integer_pipeline=True)
         assert np.abs(on_card - integer).max() < 8.0 / 255.0
+
+
+@pytest.mark.parametrize("n_images", [1, 2, 5])
+def test_kernel_on_the_1080p_pyramid(cuda, n_images):
+    """The video path's shapes: the 7 ragged grids of a 1920x1080 frame
+    (1080x1920 down to 17x30), default ARM, at the batch sizes the video
+    encode launches (one frame; its warm-up's 5, then 2 candidates)."""
+    cfg = CoolChicConfig(img_size=(1080, 1920))
+    rows, gens = zip(*[_arm_params(24, 2, 200 + b, cuda) for b in range(n_images)])
+    latents = [torch.round(torch.randn((n_images,) + s, generator=gens[0], device=cuda) * 3.0)
+               for s in cfg.latent_shapes]
+    count = ops.launch_count
+    got = ops.arm_rate_pyramid_batch(latents, stack_params(rows), 24, 2)
+    assert ops.launch_count == count + 1 and got.shape == (n_images, 2_764_710)
+    for b in range(n_images):
+        single = ops.arm_rate_pyramid([y[b] for y in latents], rows[b], 24, 2)
+        assert torch.equal(got[b], single)
+        assert_kernel_close(got[b], [y[b] for y in latents], rows[b], 24)
+
+
+def _inter_inputs(seed, device):
+    """Synthesis output [2, 9, H, W] with large and fractional flows and
+    references stored as a decoder stores them."""
+    rng = np.random.default_rng(seed)
+    raw = (0.2 * rng.standard_normal((2, 9, 37, 53))).astype(np.float32)
+    raw[:, [3, 4, 6, 7]] *= 40.0
+    refs = [torch.tensor(np.round(rng.uniform(size=(2, 3, 37, 53)) * 255).astype(np.float32) / 255,
+                         device=device) for _ in range(2)]
+    return torch.tensor(raw, device=device), refs
+
+
+def test_inter_predict_int_on_the_card_equals_the_cpu(cuda):
+    from coolchic_tpu_torch.video.intercoding import inter_predict_int
+
+    rng = np.random.default_rng(3)
+    raw = rng.integers(-(1 << 16), 1 << 16, (2, 9, 37, 53)).astype(np.int32)
+    raw[:, [3, 4, 6, 7]] = rng.integers(-(1 << 24), 1 << 24, (2, 4, 37, 53))
+    raw[:, [3, 4, 6, 7], :5] //= 1 << 10  # inside the frame, negative offsets included
+    raw[:, [5, 8]] //= 20
+    refs = [rng.integers(0, 4097, (2, 3, 37, 53)).astype(np.int32) for _ in range(2)]
+    for n_ch, flow_gain in ((6, 1), (9, 1), (9, 255)):
+        r = torch.tensor(raw[:, :n_ch])
+        r1 = torch.tensor(refs[1]) if n_ch == 9 else None
+        on_cpu = inter_predict_int(r, torch.tensor(refs[0]), r1, flow_gain)
+        on_card = inter_predict_int(r.to(cuda), torch.tensor(refs[0], device=cuda),
+                                    None if r1 is None else r1.to(cuda), flow_gain)
+        assert torch.equal(on_card.cpu(), on_cpu)
+
+
+@pytest.mark.parametrize("frame_type", ["P", "B"])
+def test_inter_eval_on_the_card_matches_the_cpu(cuda, frame_type):
+    """The P / B eval forward: on one synthesis output the decoder's levels
+    are equal on the card and the CPU; the whole eval (ARM kernel, float
+    synthesis, integer warp) within the main path's tolerance."""
+    from coolchic_tpu_torch.video.intercoding import inter_levels
+
+    raw, refs = _inter_inputs(4, cuda)
+    n_refs = "IPB".index(frame_type)
+    raw = raw[:, : 3 * (n_refs + 1)]
+    ref1 = refs[1] if n_refs == 2 else None
+    on_card = inter_levels(raw, refs[0], ref1, 1)
+    on_cpu = inter_levels(raw.cpu(), refs[0].cpu(), None if ref1 is None else ref1.cpu(), 1)
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+    cfg = CoolChicConfig(img_size=(37, 53), dim_arm=16, n_hidden_layers_arm=2,
+                         frame_type=frame_type, out_channels=3 * (n_refs + 1))
+    params = init_coolchic_params(torch.Generator(cuda).manual_seed(1), cfg, cuda)
+    rng = np.random.default_rng(5)
+    params["latents"] = [torch.tensor(rng.standard_normal(s).astype(np.float32) * 0.4,
+                                      device=cuda) for s in cfg.latent_shapes]
+    target = torch.cat([torch.tensor(rng.uniform(size=(3, 37, 53)).astype(np.float32),
+                                     device=cuda)] + [r[0] for r in refs[:n_refs]])
+    count = ops.launch_count
+    m_card = eval_metrics(params, cfg, target, 1e-3)
+    assert ops.launch_count == count + 1
+    m_cpu = eval_metrics(from_numpy_pytree(to_numpy_pytree(params), "cpu"), cfg, target.cpu(), 1e-3)
+    np.testing.assert_allclose(m_card.rate_latent_bpp.item(), m_cpu.rate_latent_bpp.item(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(m_card.psnr_db.item(), m_cpu.psnr_db.item(), atol=0.01)

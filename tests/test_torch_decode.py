@@ -259,8 +259,6 @@ def test_yuv_files_equal_jax(tmp_path, fdt, bitdepth):
     else:
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got, frames[1])
-    with pytest.raises(ValueError, match=".yuv inputs wait for video encoding"):
-        timage.load_frame_data_from_file(str(ours))
 
 
 def test_png_files_equal_jax(tmp_path):

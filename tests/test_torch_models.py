@@ -11,7 +11,9 @@ the port. Tolerances (both sides f32 on the CPU):
     differ by exactly one level (at most 3 such pixels);
   * rate: ``models.arm.rate_tolerance`` (see tests/test_torch_arm.py);
   * gradients: rtol = 1e-4, atol = 1e-6 (a backward through the ARM and
-    three convolutions, summed in another order).
+    three convolutions, summed in another order); at JAX's zero-latent
+    initialisation, where the clips tie, rtol = 1e-5 (only the synthesis
+    biases get a gradient there).
 """
 
 import jax
@@ -197,6 +199,41 @@ def test_training_loss_gradients_match_jax():
     np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
     for g, w in zip(grads, jax.tree.leaves(want_grads)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("frame_type", ["I", "P", "B"])
+def test_zero_latent_gradient_matches_jax(frame_type):
+    """The training loss (ste, no noise) at JAX's own initialisation: zero
+    latents and zero synthesis biases make every synthesized sample exactly
+    0, so the I frame's decoded image sits on the clip's lower bound and a P
+    / B frame's zero flow puts every border sample on the warp's clip
+    bounds. ``jnp.clip`` gives half the gradient at such a tie; the port's
+    gradient equals ``jax.grad`` leaf by leaf (rtol 1e-5)."""
+    arch = dict(img_size=(16, 24), n_ft_per_res=(1, 1, 1), dim_arm=8, n_hidden_layers_arm=1,
+                layers_synthesis=("8-1-linear-relu", "X-1-linear-none", "X-3-residual-none"),
+                frame_type=frame_type, out_channels={"I": 3, "P": 6, "B": 9}[frame_type])
+    jcfg, cfg = JaxConfig(**arch), CoolChicConfig(**arch)
+    params = jax.tree.map(np.asarray, jax_init_params(jax.random.PRNGKey(0), jcfg))
+    rng = np.random.default_rng(7)
+    target = rng.uniform(size=(3, 16, 24)).astype(np.float32)
+    refs = [rng.uniform(size=(3, 16, 24)).astype(np.float32) for _ in range("IPB".index(frame_type))]
+    kw = dict(quantizer_noise_type="none", quantizer_type="ste", soft_round_temperature=0.3,
+              training=True)
+
+    def jloss(p):
+        dec, rate, _ = jax_frame_forward(p, jcfg, refs=tuple(map(jnp.asarray, refs)) or None, **kw)
+        return jax_loss_function(dec, rate, jnp.asarray(target), 1e-3).loss
+
+    want_grads = jax.grad(jloss)(jax.tree.map(jnp.asarray, params))
+    tp = from_numpy_pytree(params, "cpu")
+    leaves = tree_leaves(tp)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    dec, rate, _ = frame_forward(tp, cfg, refs=tuple(map(torch.tensor, refs)) or None, **kw)
+    grads = torch.autograd.grad(loss_function(dec, rate, torch.tensor(target), 1e-3).loss, leaves)
+    assert any(np.abs(g.numpy()).max() > 1e-3 for g in grads)
+    for g, w in zip(grads, jax.tree.leaves(want_grads)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("frame_data_type", ["rgb", "yuv420"])
