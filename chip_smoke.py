@@ -2,8 +2,8 @@
 """Smoke test of the PyTorch / CUDA port on one GPU: build, kernel checks,
 one full-width image encode through the port's entry point to a ``.cool``
 bitstream, that stream decoded back, a batch of eight full-width images of
-mixed sizes encoded at once, and a 1080p video GOP (I, P, B) encoded to one
-stream.
+mixed sizes encoded at once, a 1080p video GOP (I, P, B) encoded to one
+stream, and the hypernet's one-shot encode of eight images.
 
     python3 chip_smoke.py
 
@@ -109,6 +109,29 @@ Phases, one JSON line each:
      frame the stage seconds, train steps/s, ``write_s`` and bytes; the
      decode seconds, the peak memory, and from ``utils/profile_step.py`` a
      1080p step and eval forward of an I, a P and a B frame.
+  7. hypernet path: ``hypernet.DeltaWholeNet`` with a resnet18 backbone
+     at the widths of the JAX package's ``HyperNetConfig`` (64 hidden
+     channels, synthesis and ARM heads 1024 x 3, upsampling head 256 x 3,
+     tanh), the default DecoderConfig at 512x768, the port's seeded init
+     with the heads' output layers drawn from a seeded normal (std printed;
+     untrained, so the checks are agreement checks) and the main path's
+     trained decoder as the shared base decoder, on 8 synthetic images
+     (numpy seeds 0-7). The one-shot eval forward of the 8 predicted
+     decoders must launch the kernel once, at B = 8; rows 0-1 against the
+     CPU (predictions relative 1e-3; the decoders on the card's predictions:
+     rate by ``rate_tolerance``, decoded 1e-4). ``eval_dataset`` plain and
+     with the delta-subset search (finite rows); ``hypernet_to_bitstream``
+     on images 0 and 1 (delta search, model quantization, the stream written
+     to ``smoke_out/hypernet_<i>.cool`` and decoded by the integer pipeline:
+     PSNR within 0.1 dB of the eval forward on the stream's own params, the
+     real latent rate within 20 % where the estimate is over 0.05 bpp);
+     ``eval_image_delta_subsets_rated`` on image 0 (every option's rated
+     loss printed); ``finetune_coolchic`` on image 0 with cut phases (the
+     finetuned loss at most the one-shot loss). Every launch at a batch size
+     the ``arm_rate_batch`` checks held at 512x768. Prints the prediction's
+     device ms at B = 1 and 8, the one-shot forward's wall ms, the seconds of
+     each stage and the peak memory; then, from ``utils/profile_step.py``,
+     the prediction's device time by kernel and by operator at B = 1 and 8.
 Then a ``kernels`` JSON line, the card's name and power limit, and the
 final ``{"ok": true, "device": ...}`` line. Any failure raises (exit != 0).
 
@@ -165,6 +188,15 @@ VIDEO_WARMUP_MAX_ITR = 20
 VIDEO_PHASE_MAX_ITR = (120, 24, 16)
 VIDEO_SHIFT = (3, 2)  # pixels the texture moves per frame (x, y)
 VIDEO_PROFILE_STEPS = 5  # the profiler's processing of a 1080p P step's 16,219 kernels is slow
+
+# The hypernet path: DeltaWholeNet (resnet18, the HyperNetConfig widths) on
+# 8 images of the batch path's size, seeds 0-7; streams for images 0 and 1.
+HN_IMAGES = 8
+HN_LMBDA = 1e-3
+HN_HEAD_STD = 1e-3  # std of the seeded draw of the three heads' output layers
+HN_STREAM_IMAGES = (0, 1)
+HN_CPU_IMAGES = 2  # rows of the one-shot forward held to the CPU
+HN_FINETUNE_ITR = 200  # default_finetune_phases(200): 200 + 20 iterations (1000 + 100)
 
 
 def emit(obj) -> None:
@@ -1070,6 +1102,202 @@ def phase_video_path() -> int:
     return launches
 
 
+def phase_hypernet_path(trained_params) -> int:
+    """The amortized encoder at full width: one batched eval forward of 8
+    predicted decoders, the dataset sweep (plain and with the delta-subset
+    search), the one-shot encode to a stream for two images, the rated
+    subset search and a finetune. The shared base decoder is the main path's
+    trained decoder (``trained_params`` without its latents): at its init
+    the ARM's Laplace model sits at its 2^-16 probability floor on most
+    latents, where the stream's adaptive coder pays about half the bits the
+    estimate counts, and the real rate cannot be held to the estimate.
+    Returns the kernel launches of the path. Raises on any miss."""
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch.bitstream import decode_bitstream
+    from coolchic_tpu_torch.hypernet import DeltaWholeNet, WholeNetState
+    from coolchic_tpu_torch.hypernet.finetune import default_finetune_phases, finetune_coolchic
+    from coolchic_tpu_torch.hypernet.inference import (
+        eval_dataset, eval_image_delta_subsets_rated, hypernet_to_bitstream,
+    )
+    from coolchic_tpu_torch.models.arm import arm_rate_plain, rate_tolerance
+    from coolchic_tpu_torch.models.coolchic import coolchic_forward_latents
+    from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.params import from_numpy_pytree, tree_leaves, tree_map
+    from coolchic_tpu_torch.train.step import eval_metrics
+    from coolchic_tpu_torch.utils.profile_step import profile_hypernet
+    from coolchic_tpu_torch.utils.types import DecoderConfig
+
+    def clock() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    dec = DecoderConfig()
+    cfg = dec.to_coolchic_config((IMG_H, IMG_W))
+    net = DeltaWholeNet(cfg, backbone_arch="resnet18")
+    state = net.init(0, device="cuda")
+    state = WholeNetState(state.hypernet,
+                          {k: v for k, v in trained_params.items() if k != "latents"})
+    # Untrained: the delta heads start at zero output. Draw their output
+    # layers from a seeded normal so that the deltas (and the search) are not.
+    gen = torch.Generator("cuda").manual_seed(0)
+    for head in ("MLP_0", "MLP_1", "MLP_2"):
+        mlp = getattr(net.module, head)
+        key = f"{head}.Dense_{mlp.n_layers - 1}.weight"
+        state.hypernet[key] = HN_HEAD_STD * torch.randn(
+            state.hypernet[key].shape, generator=gen, device="cuda")
+    n_params = sum(t.numel() for t in state.hypernet.values())
+    images = [np.round(synthetic_image(IMG_H, IMG_W, seed=b) * 255.0) / 255.0
+              for b in range(HN_IMAGES)]
+    imgs = torch.tensor(np.stack(images), device="cuda")
+    emit({"phase": "hypernet_path_config", "backbone": "resnet18", "n_hidden_channels": 64,
+          "heads": {"synthesis": [1024, 3], "arm": [1024, 3], "upsampling": [256, 3]},
+          "output_activation": "tanh", "hypernet_params": n_params, "images": HN_IMAGES,
+          "img_size": [IMG_H, IMG_W], "dec_cfg": vars(dec), "lmbda": HN_LMBDA,
+          "head_output_std": HN_HEAD_STD,
+          "weights": "hypernet: seeded init (seed 0), untrained; base decoder: the main path's",
+          "finetune_phases_max_itr": [p.max_itr for p in default_finetune_phases(HN_FINETUNE_ITR)],
+          "reduced": {"finetune_phases_max_itr_default": [
+              p.max_itr for p in default_finetune_phases()]}})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ar.launch_count = 0
+    ar.launches_by_batch.clear()
+
+    # 1. The one-shot eval forward of 8 predicted decoders: one launch at B = 8.
+    t0 = clock()
+    with torch.no_grad():
+        decoded, rate = net.forward(state, imgs, training=False)
+    forward_wall_ms = 1e3 * (clock() - t0)
+    if dict(ar.launches_by_batch) != {HN_IMAGES: 1}:
+        raise AssertionError(f"the one-shot forward launched {dict(ar.launches_by_batch)}")
+    if tuple(decoded.shape) != (HN_IMAGES, 3, IMG_H, IMG_W) or not torch.isfinite(decoded).all() \
+            or not torch.isfinite(rate).all():
+        raise AssertionError("the one-shot forward's outputs are not finite or mis-shaped")
+    # Rows 0-1 on the CPU: the hypernet's predictions from the same weights,
+    # and the decoders on the card's predictions (so that no latent rounds
+    # the other way on one device only).
+    with torch.no_grad():
+        lat_card, delta_card = net.predict(state, imgs[:HN_CPU_IMAGES])
+        cpu_state = WholeNetState(*[tree_map(lambda t: t.cpu(), tree) for tree in state])
+        lat_cpu, delta_cpu = net.predict(cpu_state, imgs[:HN_CPU_IMAGES].cpu())
+        predict_err = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-6))
+                          for a, b in zip(tree_leaves([lat_card, delta_card]),
+                                          tree_leaves([lat_cpu, delta_cpu])))
+        if predict_err > 1e-3:
+            raise AssertionError(f"card vs CPU predictions differ by {predict_err} (relative)")
+        lat_c = [y.cpu() for y in lat_card]
+        nets_c = net._nets(cpu_state, tree_map(lambda t: t.cpu(), delta_card))
+        dec_cpu, rate_cpu, _ = coolchic_forward_latents(nets_c, lat_c, cfg, training=False)
+        y_hat = [torch.round(y * cfg.encoder_gain) for y in lat_c]
+        log_scale = arm_rate_plain(y_hat, nets_c["arm"], cfg.dim_arm)[2]
+        scale = torch.exp(torch.clamp(log_scale - 4.0, -4.6, 5.0))
+    rate_ok = (rate[:HN_CPU_IMAGES].cpu() - rate_cpu).abs() <= rate_tolerance(rate_cpu, scale)
+    decoded_err = float((decoded[:HN_CPU_IMAGES].cpu() - dec_cpu).abs().max())
+    if not bool(rate_ok.all()) or decoded_err > 1e-4:
+        raise AssertionError(f"one-shot forward card vs CPU: {int((~rate_ok).sum())} rates out "
+                             f"of tolerance, decoded max abs diff {decoded_err}")
+    latent_std = float(torch.cat([y.flatten() for y in lat_card]).std())
+    delta_std = {m: float(torch.cat([t.flatten() for t in tree_leaves(delta_card[m])]).std())
+                 for m in delta_card}
+
+    # Prediction alone (no kernel), device time by CUDA events.
+    with torch.no_grad():
+        predict_ms = {b: time_ms(lambda b=b: net.predict(state, imgs[:b]), n_warmup=1,
+                                 n_iter=5, per_sample=2) for b in (1, HN_IMAGES)}
+
+    # 2. The dataset sweep, plain and with the delta-subset search.
+    named = [(f"synthetic_{b}", images[b]) for b in range(HN_IMAGES)]
+    t0 = clock()
+    rows = eval_dataset(net, state, named, HN_LMBDA)
+    sweep_s = clock() - t0
+    t0 = clock()
+    rows_search = eval_dataset(net, state, named, HN_LMBDA, delta_subset_search=True)
+    sweep_search_s = clock() - t0
+    for row in rows + rows_search:
+        if not all(math.isfinite(row[k]) for k in ("rate_bpp", "psnr_db", "mse")):
+            raise AssertionError(f"eval_dataset row not finite: {row}")
+
+    # 3. The one-shot encode to a stream, decoded by the integer pipeline.
+    streams = []
+    for b in HN_STREAM_IMAGES:
+        timings = {}
+        data, info = hypernet_to_bitstream(net, state, imgs[b], HN_LMBDA, timings=timings)
+        path = OUT_DIR / f"hypernet_{b}.cool"
+        path.write_bytes(data)
+        t0 = time.perf_counter()
+        img_int, _ = decode_bitstream(path.read_bytes(), integer_pipeline=True)
+        decode_s = time.perf_counter() - t0
+        # The eval forward's estimate on the stream's own params and latents.
+        _, full = decode_bitstream(data, integer_pipeline=True, full_info=True)
+        params = from_numpy_pytree(tree_map(lambda a: np.asarray(a, np.float32), full["params"]),
+                                   "cuda")
+        params["latents"] = [torch.tensor(np.asarray(y, np.float32) / cfg.encoder_gain,
+                                          device="cuda") for y in full["latents"]]
+        est = eval_metrics(params, cfg, imgs[b], HN_LMBDA)
+        psnr_est, bpp_est = est.psnr_db.item(), est.rate_latent_bpp.item()
+        psnr_int = psnr_db(img_int, images[b])
+        real_latent_bpp = 8 * sum(full["frame_header"].n_bytes_per_latent) / cfg.n_pixels
+        if abs(psnr_int - psnr_est) >= 0.1:
+            raise AssertionError(f"image {b}: decoded PSNR {psnr_int} vs estimate {psnr_est}")
+        if bpp_est > 0.05 and abs(real_latent_bpp - bpp_est) / bpp_est >= 0.2:
+            raise AssertionError(f"image {b}: real latent rate {real_latent_bpp} vs {bpp_est}")
+        streams.append({
+            "image": b, "file": path.name, "n_bytes": len(data), "psnr_db": psnr_int,
+            "psnr_db_estimate": psnr_est, "real_latent_bpp": real_latent_bpp,
+            "rate_latent_bpp_estimate": bpp_est, **timings, "decode_s": decode_s,
+            "delta_q_steps": {m: [i.q_step_w, i.q_step_b] for m, i in info["delta_infos"].items()},
+            "delta_rate_bits": {m: i.rate_bits for m, i in info["delta_infos"].items()},
+            "nn_q_steps": {m: [i.q_step_w, i.q_step_b] for m, i in info["nn_infos"].items()}})
+
+    # 4. The rated delta-subset search on image 0.
+    options = []
+    t0 = clock()
+    best = eval_image_delta_subsets_rated(net, state, imgs[0], HN_LMBDA, all_options=options)
+    rated_s = clock() - t0
+
+    # 5. A finetune of image 0 from the one-shot decoder, phases cut.
+    t0 = clock()
+    m0, _, logs = finetune_coolchic(net, state, imgs[0], HN_LMBDA, 0,
+                                    default_finetune_phases(HN_FINETUNE_ITR))
+    finetune_s = clock() - t0
+    if not logs.loss <= m0.loss.item():
+        raise AssertionError(f"finetuned loss {logs.loss} > one-shot loss {m0.loss.item()}")
+
+    launches = ar.launch_count
+    launches_by_batch = check_batch_sizes_seen("the hypernet path")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    profiles = {b: profile_hypernet(b, (IMG_H, IMG_W), steps=3) for b in (1, HN_IMAGES)}
+    emit({"phase": "hypernet_predict_profile", "seconds": time.perf_counter() - t0, **{
+        f"b{b}": {k: line[k] for k in ("wall_ms", "device_ms_per_iter", "kernels_per_iter",
+                                       "device_busy_share", "top_ops")}
+        for b, line in profiles.items()}})
+    emit({
+        "phase": "hypernet_path",
+        "launches": launches, "arm_rate_launches_by_batch": launches_by_batch,
+        "one_shot_forward_wall_ms": forward_wall_ms,
+        "predict_ms": {str(b): ms for b, ms in predict_ms.items()},
+        "card_vs_cpu": {"rows": HN_CPU_IMAGES, "predict_max_rel_err": predict_err,
+                        "decoded_max_abs_diff": decoded_err,
+                        "rate_max_abs_diff": float((rate[:HN_CPU_IMAGES].cpu() - rate_cpu)
+                                                   .abs().max())},
+        "latent_std": latent_std, "delta_std": delta_std,
+        "eval_dataset_s": sweep_s, "eval_dataset_search_s": sweep_search_s,
+        "eval_dataset_rows": rows, "eval_dataset_search_options": [
+            r["option_selected"] for r in rows_search],
+        "streams": streams,
+        "rated_search": {"best": best, "options": options, "seconds": rated_s},
+        "finetune": {"one_shot_loss": m0.loss.item(), "finetuned_loss": logs.loss,
+                     "one_shot_psnr_db": m0.psnr_db.item(), "finetuned_psnr_db": logs.psnr_db,
+                     "seconds": finetune_s},
+        "max_memory_allocated_bytes": peak_bytes,
+    })
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1099,15 +1327,17 @@ def main() -> int:
     timed("bitstream", phase_bitstream, run, cfg, img, cool)
     batch_launches = timed("batch_path", phase_batch_path, single_steps_per_s)
     video_launches = timed("video_path", phase_video_path)
+    hypernet_launches = timed("hypernet_path", phase_hypernet_path, run.result.params)
     emit({"kernels": [{
         "name": "arm_rate",
         "route": "cuda",
         "source": "coolchic_tpu_torch/csrc/arm_rate.cu",
         "replaces": "coolchic_tpu/ops/pallas_arm.py:86",
-        "launches": launches + batch_launches + video_launches,
+        "launches": launches + batch_launches + video_launches + hypernet_launches,
         "launches_main_path": launches,
         "launches_batch_path": batch_launches,
         "launches_video_path": video_launches,
+        "launches_hypernet_path": hypernet_launches,
         "max_abs_err": pyramid["max_abs_err"],
         "ms": pyramid["ms"],
         "plain_ms": pyramid["plain_ms"],

@@ -147,6 +147,38 @@ def coolchic_forward(
     return raw_out, rate, extras
 
 
+def coolchic_forward_latents(
+    net_params: Params,
+    latents: Sequence[torch.Tensor],
+    cfg: CoolChicConfig,
+    quantizer_noise_type: str = "kumaraswamy",
+    quantizer_type: str = "softround",
+    soft_round_temperature: float = 0.3,
+    noise_parameter: float = 1.0,
+    ac_max_val: int = -1,
+    training: bool = True,
+    noise: Optional[Sequence[torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
+    """``coolchic_forward`` with the latents given apart from the nets (the
+    hypernet's predicted latents): [C, h, w] grids with unbatched nets, or
+    [B, C, h, w] grids with every net leaf [B, ...] for B decoders."""
+    params = dict(net_params)
+    params["latents"] = list(latents)
+    return coolchic_forward(
+        params,
+        cfg,
+        quantizer_noise_type=quantizer_noise_type,
+        quantizer_type=quantizer_type,
+        soft_round_temperature=soft_round_temperature,
+        noise_parameter=noise_parameter,
+        ac_max_val=ac_max_val,
+        training=training,
+        noise=noise,
+        generator=generator,
+    )
+
+
 def frame_forward(
     params: Params,
     cfg: CoolChicConfig,

@@ -48,13 +48,15 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
-def tree_map(fn, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of ``tree``, keeping its structure."""
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf of ``tree``, keeping its structure; with
+    ``rest``, trees of the same structure whose matching leaves are passed
+    as further arguments (``tree_map(torch.add, base, delta)``)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_clone(tree: Any) -> Any:

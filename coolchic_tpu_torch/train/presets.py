@@ -91,9 +91,18 @@ class Preset:
                 for wp in d.get("warmup", {}).get("phases", [])
             )
         )
-        if phases and not any(p.quantize_model for p in phases):
+        # A hypernet recipe ("hnet" in its name) may leave the quantization out.
+        if phases and "hnet" not in d["preset_name"] and not any(p.quantize_model for p in phases):
             raise ValueError(f"Preset {d['preset_name']} has no phase with NN quantization.")
         return cls(preset_name=d["preset_name"], all_phases=phases, warmup=warm)
+
+    def with_first_phase_itr(self, n_itr: Optional[int]) -> "Preset":
+        """The preset with the first phase's ``max_itr`` set to ``n_itr``
+        (unchanged when ``n_itr`` is None or 0), as the encoder's ``--n_itr``."""
+        if not n_itr:
+            return self
+        first = replace(self.all_phases[0], max_itr=n_itr)
+        return replace(self, all_phases=(first,) + self.all_phases[1:])
 
 
 def load_preset(name_or_path: str, n_itr: Optional[int] = None) -> Preset:
@@ -105,8 +114,4 @@ def load_preset(name_or_path: str, n_itr: Optional[int] = None) -> Preset:
     if name_or_path in PRESET_NAMES:
         path = PRESET_CFG_DIR / f"{name_or_path}.yaml"
     with open(path) as f:
-        preset = Preset.from_dict(yaml.safe_load(f))
-    if n_itr:
-        first = replace(preset.all_phases[0], max_itr=n_itr)
-        preset = replace(preset, all_phases=(first,) + preset.all_phases[1:])
-    return preset
+        return Preset.from_dict(yaml.safe_load(f)).with_first_phase_itr(n_itr)

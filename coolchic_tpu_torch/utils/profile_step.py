@@ -1,7 +1,7 @@
 """Where the time of one training step and one eval forward goes, on a GPU.
 
     python -m coolchic_tpu_torch.utils.profile_step [--frame_type I|P|B]
-        [--img_size HxW] [B ...]
+        [--img_size HxW] [--hypernet] [B ...]
 
 For each batch size B given (default: 1), builds B default decoders (arm
 24,2; 40-wide synthesis; 7 grids) at 512x768 (or ``--img_size``) with random
@@ -18,6 +18,12 @@ fixed-point warp in the eval forward). The eval-forward line also gives the ARM 
 launches as the wrapper counted them over the window beside the profiler's
 count (``profile_complete``: the profiler saw every launch), and the peak
 device memory of the batch size.
+
+With ``--hypernet``: the prediction of B images by the hypernet of
+``hypernet.DeltaWholeNet`` (resnet18 at the JAX package's HyperNetConfig
+widths, seeded init) at the image size, no gradient: wall and device time
+per prediction, by kernel and by operator (``aten::`` ops, their own device
+time, so that a layer's share shows).
 """
 
 from __future__ import annotations
@@ -55,6 +61,65 @@ def _device_table(prof, n_iter: int, top: int = 12) -> dict:
     }
 
 
+def _op_table(prof, n_iter: int, top: int = 12) -> list:
+    """Device time per iteration by the ``aten::`` operator that launched it
+    (each op's own kernels, not its children's)."""
+    from torch.autograd import DeviceType
+
+    rows = [(evt.key, evt.self_device_time_total / n_iter / 1e3, evt.count / n_iter)
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CPU and evt.key.startswith("aten::")
+            and evt.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return [{"op": k, "ms_per_iter": ms, "calls_per_iter": c} for k, ms, c in rows[:top]]
+
+
+def profile_hypernet(batch: int, img_size=(H, W), steps: int = 5) -> dict:
+    """Profile the hypernet's prediction of ``batch`` images of ``img_size``
+    over ``steps`` iterations; prints and returns one JSON line."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from coolchic_tpu_torch.hypernet import DeltaWholeNet
+    from coolchic_tpu_torch.train.step import make_generator
+    from coolchic_tpu_torch.utils.types import DecoderConfig
+
+    device = torch.device("cuda")
+    net = DeltaWholeNet(DecoderConfig().to_coolchic_config(img_size), backbone_arch="resnet18")
+    state = net.init(0, device=device)
+    imgs = torch.rand(batch, 3, *img_size, generator=make_generator(device, 0), device=device)
+    torch.cuda.reset_peak_memory_stats()
+
+    @torch.no_grad()
+    def predict():
+        net.predict(state, imgs)
+
+    for _ in range(2):
+        predict()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        predict()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+        for i in range(1 + steps):
+            predict()
+            if i in (0, steps):
+                torch.cuda.synchronize()
+            prof.step()
+    table = _device_table(prof, steps)
+    table.pop("arm_rate_calls")
+    line = {"what": "hypernet_predict", "batch": batch, "img_size": list(img_size),
+            "steps": steps, "wall_ms": wall_ms,
+            "device_busy_share": table["device_ms_per_iter"] / wall_ms, **table,
+            "top_ops": _op_table(prof, steps),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "device": torch.cuda.get_device_name(0)}
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step needs a GPU", file=sys.stderr)
@@ -62,13 +127,18 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="profile one train step and one eval forward")
     p.add_argument("--frame_type", choices=["I", "P", "B"], default="I")
     p.add_argument("--img_size", default=f"{H}x{W}", help="HxW")
+    p.add_argument("--hypernet", action="store_true",
+                   help="profile the hypernet's prediction instead")
     p.add_argument("batch", type=int, nargs="*")
     args = p.parse_args(argv)
     img_size = tuple(int(v) for v in args.img_size.split("x"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for batch in args.batch or [1]:
-        profile_batch(batch, args.frame_type, img_size)
+        if args.hypernet:
+            profile_hypernet(batch, img_size)
+        else:
+            profile_batch(batch, args.frame_type, img_size)
     return 0
 
 

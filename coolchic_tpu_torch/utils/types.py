@@ -77,16 +77,18 @@ class DecoderConfig:
 
 @dataclass
 class EncoderConfig:
-    """Training recipe of a run: a named preset of ``preset_cfg/`` whose
-    first phase lasts ``n_itr`` iterations when given; for a ``.yuv`` input,
-    the coding structure of its GOP (``intra_period`` inter frames after the
-    intra frame, P frames every ``p_period``; 0 for ``max(intra_period, 1)``)."""
+    """Training recipe of a run: a named preset of ``preset_cfg/``, or a
+    recipe given inline (a dict of the preset files' layout), whose first
+    phase lasts ``n_itr`` iterations when given; for a ``.yuv`` input, the
+    coding structure of its GOP (``intra_period`` inter frames after the
+    intra frame, P frames every ``p_period``; 0 for ``max(intra_period, 1)``).
+    A config file names exactly one of ``recipe`` and ``std_recipe_name``."""
 
     # A key of the JAX package's YAML files (``cfg/enc/*.yaml``) that nothing
     # reads: the recipe's phases set their learning rates. Read and dropped.
     IGNORED_KEYS = ("start_lr",)
 
-    std_recipe_name: str = "c3x"
+    std_recipe_name: Optional[str] = "c3x"
     n_itr: Optional[int] = None
     n_train_loops: int = 1
     recipe: Optional[Preset] = None
@@ -101,8 +103,14 @@ class EncoderConfig:
     def from_dict(cls, d: Dict[str, Any]) -> "EncoderConfig":
         kw = _known_fields(
             cls, {k: v for k, v in d.items() if k not in cls.IGNORED_KEYS}, "encoder config")
-        if "recipe" in kw:
-            raise ValueError("an inline recipe is not read here: name one with std_recipe_name")
+        recipe, name = kw.get("recipe"), kw.get("std_recipe_name")
+        if not recipe and not name:
+            raise ValueError("One of 'recipe' or 'std_recipe_name' must be provided.")
+        if recipe and name:
+            raise ValueError("Only one of 'recipe' or 'std_recipe_name' must be provided.")
+        if recipe:
+            kw["recipe"] = Preset.from_dict(recipe).with_first_phase_itr(kw.get("n_itr"))
+            kw["std_recipe_name"] = None
         return cls(**kw)
 
 
@@ -140,9 +148,14 @@ class UserConfig:
     output: Optional[Path] = None
     workdir: Optional[Path] = None
 
+    # Keys of the JAX package's user config that do nothing here, as they do
+    # nothing in its CLI: read and dropped.
+    IGNORED_KEYS = ("job_duration_min", "disable_wandb", "load_models", "user_tag")
+
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "UserConfig":
-        kw = _known_fields(cls, d, "user config")
+        kw = _known_fields(
+            cls, {k: v for k, v in d.items() if k not in cls.IGNORED_KEYS}, "user config")
         for key in ("input", "enc_cfg", "dec_cfg"):
             if key not in kw:
                 raise ValueError(f"the user config needs '{key}'")

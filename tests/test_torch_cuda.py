@@ -1,7 +1,7 @@
 """The port on a GPU: the ARM kernel against its plain version (the video
 path's 1080p pyramid included), the eval forward (I, P and B frames, the
-fixed-point warp) and the bitstream's float decode on the card against the
-CPU. Every test here needs an NVIDIA GPU and skips without one. The file imports no JAX, so it runs where JAX is not
+fixed-point warp), the bitstream's float decode, the hypernet's batched eval
+forward and its delta search on the card against the CPU. Every test here needs an NVIDIA GPU and skips without one. The file imports no JAX, so it runs where JAX is not
 installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -320,3 +320,97 @@ def test_inter_eval_on_the_card_matches_the_cpu(cuda, frame_type):
     np.testing.assert_allclose(m_card.rate_latent_bpp.item(), m_cpu.rate_latent_bpp.item(),
                                rtol=1e-5)
     np.testing.assert_allclose(m_card.psnr_db.item(), m_cpu.psnr_db.item(), atol=0.01)
+
+
+def _hypernet(seed=0):
+    """A DeltaWholeNet (resnet18, 8 hidden channels, narrow heads) of the
+    default decoder at 48x64, the port's seeded init on the CPU with every
+    leaf perturbed (numpy, ``seed``) so that the deltas are not zero."""
+    from coolchic_tpu_torch.hypernet import DeltaWholeNet, WholeNetState
+
+    cfg = CoolChicConfig(img_size=(48, 64))
+    net = DeltaWholeNet(cfg, n_hidden_channels=8, synthesis_hidden_dim=64, arm_hidden_dim=64,
+                        ups_hidden_dim=32)
+    state = net.init(seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    state = WholeNetState(*[
+        from_numpy_pytree(_perturb(to_numpy_pytree(tree), rng), "cpu") for tree in state])
+    img = np.random.default_rng(seed + 1).uniform(size=(3, 3, 48, 64)).astype(np.float32)
+    return net, state, img
+
+
+def _perturb(tree, rng, scale=0.01):
+    if isinstance(tree, dict):
+        return {k: _perturb(v, rng, scale) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_perturb(v, rng, scale) for v in tree]
+    return (tree + scale * rng.standard_normal(tree.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["delta", "full", "no"])
+def test_hypernet_eval_forward_on_the_card_matches_the_cpu(cuda, mode):
+    """Three images' eval forward: one kernel launch for the three decoders
+    (base + delta; the predicted weights alone; the shared decoder expanded
+    to the batch), each row's rate held to the plain versions on the card,
+    and the metrics to the CPU's."""
+    from coolchic_tpu_torch.hypernet import DeltaWholeNet, NOWholeNet, WholeNetState
+    from coolchic_tpu_torch.params import tree_map
+    from coolchic_tpu_torch.train.loss import loss_function
+
+    net, state, img = _hypernet()
+    if mode == "full":
+        net = DeltaWholeNet(net.cfg, mode="full", n_hidden_channels=8, synthesis_hidden_dim=64,
+                            arm_hidden_dim=64, ups_hidden_dim=32)
+    elif mode == "no":
+        prefix = "LatentHyperNet_0."
+        net = NOWholeNet(net.cfg, n_hidden_channels=8)
+        state = WholeNetState({k[len(prefix):]: v for k, v in state.hypernet.items()
+                               if k.startswith(prefix)}, state.decoder)
+    on = {d: (tree_map(lambda t: t.to(d), state._asdict()), torch.tensor(img, device=d))
+          for d in ("cpu", "cuda")}
+    out = {}
+    for d, (s, x) in on.items():
+        s = type(state)(**s)
+        count = ops.launch_count
+        with torch.no_grad():
+            decoded, rate = net.forward(s, x, training=False)
+        if d == "cuda":
+            assert ops.launch_count == count + 1
+            with torch.no_grad():
+                if mode == "no":
+                    latents = net.predict_latents(s, x)
+                    arm = tree_map(lambda t: t.expand(3, *t.shape), s.decoder["arm"])
+                else:
+                    latents, deltas = net.predict(s, x)
+                    arm = net._nets(s, deltas)["arm"]
+            for b in range(3):
+                y_hat = [torch.round(y[b] * net.cfg.encoder_gain) for y in latents]
+                assert_kernel_close(rate[b], y_hat, tree_map(lambda t: t[b].contiguous(), arm),
+                                    net.cfg.dim_arm)
+        out[d] = loss_function(decoded, rate, x, 1e-3)
+    np.testing.assert_allclose(out["cuda"].rate_latent_bpp.cpu().numpy(),
+                               out["cpu"].rate_latent_bpp.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(out["cuda"].psnr_db.cpu().numpy(), out["cpu"].psnr_db.numpy(),
+                               atol=0.01)
+
+
+def test_quantize_model_deltas_on_the_card_matches_the_cpu(cuda):
+    """The delta search from the same latents and deltas: equal choices."""
+    from coolchic_tpu_torch.params import tree_map
+    from coolchic_tpu_torch.train.quantize_model import quantize_model_deltas
+
+    net, state, img = _hypernet(1)
+    with torch.no_grad():
+        latents, deltas = net.predict(state, torch.tensor(img[:1]))
+    lat0 = [y[0] for y in latents]
+    delta0 = tree_map(lambda d: d[0], deltas)
+    infos = {}
+    for d in ("cpu", "cuda"):
+        _, infos[d] = quantize_model_deltas(
+            tree_map(lambda t: t.to(d), state.decoder), tree_map(lambda t: t.to(d), delta0),
+            [y.to(d) for y in lat0], torch.tensor(img[0], device=d), 1e-3, net.cfg)
+    for m, want in infos["cpu"].items():
+        got = infos["cuda"][m]
+        assert (got.q_step_w, got.q_step_b, got.expgol_w, got.expgol_b) == (
+            want.q_step_w, want.q_step_b, want.expgol_w, want.expgol_b), m
+        assert abs(got.rate_bits - want.rate_bits) <= 1e-4 * max(1.0, want.rate_bits)

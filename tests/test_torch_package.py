@@ -48,7 +48,8 @@ def test_importing_the_encoder_loads_no_jax():
             "coolchic_tpu_torch.decode, coolchic_tpu_torch.bitstream, coolchic_tpu_torch.video, "
             "coolchic_tpu_torch.video.encoder, coolchic_tpu_torch.video.intercoding, "
             "coolchic_tpu_torch.bitstream.decode, coolchic_tpu_torch.bitstream.inter, "
-            "coolchic_tpu_torch.utils.sanity_check; "
+            "coolchic_tpu_torch.utils.sanity_check, coolchic_tpu_torch.hypernet.inference, "
+            "coolchic_tpu_torch.hypernet.finetune; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'coolchic_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -175,6 +176,47 @@ input: [a.png, b.png]
 enc_cfg: {std_recipe_name: debug}
 dec_cfg: {}
 """,
+    # An inline recipe, its first phase cut by n_itr, the latent module named
+    # as the reference names it.
+    "inline_recipe": """
+input: a.png
+lmbda: [1e-3, 2e-3]
+enc_cfg:
+  n_itr: 77
+  recipe:
+    preset_name: my_recipe
+    warmup:
+      phases:
+        - candidates: 3
+          training_phase: {lr: 1e-2, max_itr: 40, freq_valid: 20}
+        - candidates: 1
+          training_phase: {max_itr: 20, freq_valid: 10, quantizer_noise_type: gaussian, noise_parameter: [0.25, 0.1]}
+    all_phases:
+      - {lr: 1e-2, max_itr: 500, freq_valid: 50, patience: 200, schedule_lr: true, softround_temperature: [0.3, 0.1], noise_parameter: [2.0, 1.0]}
+      - {lr: 1e-4, max_itr: 30, freq_valid: 10, quantize_model: true, quantizer_type: ste, quantizer_noise_type: none, optimized_module: [latent, arm]}
+dec_cfg: {arm: "8,1"}
+""",
+    # A hypernet recipe ("hnet" in its name) may have no quantization phase.
+    "inline_hnet_recipe": """
+input: a.png
+enc_cfg:
+  recipe:
+    preset_name: hnet_finetune
+    warmup: {phases: []}
+    all_phases:
+      - {lr: 1e-3, max_itr: 100, freq_valid: 100, quantizer_type: softround, quantizer_noise_type: gaussian}
+dec_cfg: {}
+""",
+    # Fields of the JAX package's config that its CLI reads and ignores.
+    "ignored_fields": """
+input: a.png
+job_duration_min: 30
+disable_wandb: true
+load_models: false
+user_tag: nightly
+enc_cfg: {std_recipe_name: debug, n_itr: 50}
+dec_cfg: {}
+""",
 }
 
 
@@ -197,8 +239,11 @@ def test_user_config_expansion_matches_jax(name, tmp_path):
         for field in ("std_recipe_name", "n_itr", "n_train_loops"):
             assert getattr(g.enc_cfg, field) == getattr(w.enc_cfg, field), field
         want_preset = w.enc_cfg.recipe.to_preset()
+        assert g.enc_cfg.recipe.preset_name == want_preset.preset_name
         assert [vars(p) for p in g.enc_cfg.recipe.all_phases] == [
             vars(p) for p in want_preset.all_phases]
+        assert [(p.candidates, vars(p.training_phase)) for p in g.enc_cfg.recipe.warmup.phases] \
+            == [(p.candidates, vars(p.training_phase)) for p in want_preset.warmup.phases]
 
 
 @pytest.mark.parametrize("text,match", [
@@ -206,6 +251,11 @@ def test_user_config_expansion_matches_jax(name, tmp_path):
     ("input: a.png\nenc_cfg: {std_recipe_name: debug}\ndec_cfg: {arms: '8,1'}", "arms"),
     ("input: a.png\nenc_cfg: {std_recipe_name: debug, lr: 1}\ndec_cfg: {}", "lr"),
     ("lmbda: 1e-3\nenc_cfg: {std_recipe_name: debug}\ndec_cfg: {}", "input"),
+    ("input: a.png\nenc_cfg: {n_itr: 10}\ndec_cfg: {}", "One of"),
+    ("input: a.png\nenc_cfg: {std_recipe_name: debug, recipe: {preset_name: x, warmup: {}, "
+     "all_phases: [{quantize_model: true}]}}\ndec_cfg: {}", "Only one"),
+    ("input: a.png\nenc_cfg: {recipe: {preset_name: x, warmup: {}, all_phases: [{lrr: 1, "
+     "quantize_model: true}]}}\ndec_cfg: {}", "lrr"),
 ])
 def test_user_config_rejects_unknown_and_missing_fields(text, match, tmp_path):
     path = tmp_path / "runs.yaml"
