@@ -3,7 +3,8 @@
 one full-width image encode through the port's entry point to a ``.cool``
 bitstream, that stream decoded back, a batch of eight full-width images of
 mixed sizes encoded at once, a 1080p video GOP (I, P, B) encoded to one
-stream, and the hypernet's one-shot encode of eight images.
+stream, the hypernet's one-shot encode of eight images, and the hypernet's
+training through its CLI.
 
     python3 chip_smoke.py
 
@@ -43,7 +44,9 @@ Phases, one JSON line each:
      ARM weights and latents (seeded), at the main path's pyramid and at the
      ragged pyramid of a 37x130 image; and B in {1, 2, 5} at the ragged
      pyramid of a 1920x1080 frame (1080x1920 down to 17x30; 2,764,710
-     latents), every batch size the video path launches. Each row is held
+     latents), every batch size the video path launches; and B in {1, 8} at
+     the 256x256 pyramid, every batch size the hypernet training path
+     launches. Each row is held
      to the float64 and f32 plain versions as above, row by row, and the
      batch's one launch must equal, bit for bit, B single-image launches on
      the same rows. Timed by CUDA-graph replay, beside B times the f64
@@ -132,6 +135,27 @@ Phases, one JSON line each:
      device ms at B = 1 and 8, the one-shot forward's wall ms, the seconds of
      each stage and the peak memory; then, from ``utils/profile_step.py``,
      the prediction's device time by kernel and by operator at B = 1 and 8.
+  8. hypernet training path: the trainer's CLI (``hypernet_train.main``,
+     ``--synthetic --device cuda``) at the JAX CLI's no-config default, full
+     width: resnet18 ``DeltaWholeNet`` (21.8 M parameters), the default
+     DecoderConfig at 256x256, batch 8, lambda 1e-3, lr 1e-4 with the cosine,
+     softround + gaussian 0.3 / 0.25; the samples cut (``HT_SAMPLES``, from
+     10,000): ``--mode no`` for 100 steps with two checkpoints, ``--mode
+     delta --init_from`` it for 50 steps, ``--resume`` that run to 70 steps,
+     ``--mode small`` for 5 steps, then ``iterations_to_match`` of the resumed
+     delta net on one 256x256 image (200 iterations, a check every 50). First,
+     one train step of the delta net at batch 2 (deterministic quantizer) on
+     the card against the CPU (``hypernet_step_card_vs_cpu`` states the
+     tolerance). Checks: the NO run's best state beats its init on the eval
+     batch; the resumed run starts from the checkpoint it loads, with its
+     ``samples_seen``, and validates on the global sample clock; every
+     validation (one ``evaluate_wholenet``, one launch at B = 8) and every
+     eval of ``iterations_to_match`` (B = 1) launched the kernel; metrics
+     finite. Prints per run steps/s and samples/s (wall, synchronised), the
+     eval metrics before and after, every checkpoint write's seconds,
+     ``evaluate_wholenet`` ms at B = 8, the peak memory and, from
+     ``utils/profile_step.py``, a train step of each whole net at B = 8 by
+     kernel and by operator, and its forward alone.
 Then a ``kernels`` JSON line, the card's name and power limit, and the
 final ``{"ok": true, "device": ...}`` line. Any failure raises (exit != 0).
 
@@ -175,6 +199,7 @@ BATCH_LMBDAS = (1e-3,) * 4 + (4e-3,) * 4
 BATCH_VALID_HW = {3: (480, 720), 7: (512, 704)}  # image index -> true (H, W)
 BATCH_WARMUP_MAX_ITR = 30
 BATCH_PHASE_MAX_ITR = (200, 40, 30)
+BATCH_PROFILE_STEPS = 5  # iterations of each profiled step and eval forward at B = 1 and 8
 
 # The video path: a 3-frame 1920x1080 4:2:0 GOP (I, P at display 2, B at
 # display 1), one frame after another; each frame's warm-up trains 5, then 2
@@ -187,7 +212,7 @@ VIDEO_LMBDA = 1e-3
 VIDEO_WARMUP_MAX_ITR = 20
 VIDEO_PHASE_MAX_ITR = (120, 24, 16)
 VIDEO_SHIFT = (3, 2)  # pixels the texture moves per frame (x, y)
-VIDEO_PROFILE_STEPS = 5  # the profiler's processing of a 1080p P step's 16,219 kernels is slow
+VIDEO_PROFILE_STEPS = 3  # the profiler's processing of a 1080p P step's 16,219 kernels is slow
 
 # The hypernet path: DeltaWholeNet (resnet18, the HyperNetConfig widths) on
 # 8 images of the batch path's size, seeds 0-7; streams for images 0 and 1.
@@ -197,6 +222,20 @@ HN_HEAD_STD = 1e-3  # std of the seeded draw of the three heads' output layers
 HN_STREAM_IMAGES = (0, 1)
 HN_CPU_IMAGES = 2  # rows of the one-shot forward held to the CPU
 HN_FINETUNE_ITR = 200  # default_finetune_phases(200): 200 + 20 iterations (1000 + 100)
+
+# The hypernet training path: the JAX CLI's no-config default (resnet18 at
+# the HyperNetConfig widths, DecoderConfig() at 256x256, batch 8, lambda 1e-3,
+# lr 1e-4 with the cosine, softround + gaussian 0.3 / 0.25); only the number
+# of samples is cut (10,000 -> the ones below).
+HT_PATCH = 256
+HT_BATCH = 8
+HT_BATCH_SIZES = (1, 8)  # iterations_to_match's phases, the validations
+HT_SAMPLES = {"no": 800, "delta": 400, "resume": 560, "small": 40}
+HT_CKPT_FREQ = {"no": 320, "delta": 160, "resume": 80}  # samples between checkpoints
+HT_CPU_BATCH = 2  # the one-step check of the card against the CPU
+HT_CPU_LR = 1e-4
+HT_MATCH = (200, 50)  # iterations_to_match's max_itr, check_every
+HT_PROFILE_STEPS = 2
 
 
 def emit(obj) -> None:
@@ -507,6 +546,11 @@ def phase_kernel_checks() -> dict:
     out["ms_batch8"] = batch_ms[8]
     out["bound_batch8_ms"] = 8 * out["bound_f64_ms"]
     out["ms_by_batch"] = {str(b): ms for b, ms in batch_ms.items()}
+
+    # The hypernet training path's shapes: 256x256 patches.
+    ht_ms = batch_kernel_checks(CoolChicConfig(img_size=(HT_PATCH, HT_PATCH)),
+                                f"{HT_PATCH}x{HT_PATCH}", HT_BATCH_SIZES)
+    out["ms_256x256_by_batch"] = {str(b): ms for b, ms in ht_ms.items()}
 
     # The video path's shapes: the ragged 7-grid pyramid of a 1080p frame.
     video_cfg = CoolChicConfig(img_size=(VIDEO_H, VIDEO_W))
@@ -909,7 +953,7 @@ def phase_batch_path(single_steps_per_s: float) -> int:
         "max_memory_allocated_bytes": peak_bytes,
     })
     t0 = time.perf_counter()
-    profiles = {b: profile_batch(b) for b in (1, n_images)}
+    profiles = {b: profile_batch(b, steps=BATCH_PROFILE_STEPS) for b in (1, n_images)}
     emit({"phase": "batch_step_profile", "seconds": time.perf_counter() - t0, **{
         f"{what}_b{b}": {k: lines[what][k] for k in (
             "wall_ms", "device_ms_per_iter", "kernels_per_iter", "device_busy_share",
@@ -1298,6 +1342,252 @@ def phase_hypernet_path(trained_params) -> int:
     return launches
 
 
+def hypernet_step_card_vs_cpu(net, state, imgs) -> dict:
+    """One whole-net train step (deterministic quantizer, lr ``HT_CPU_LR``)
+    from the same state and images on the card and on the CPU. The losses
+    must agree to 1e-4 relative. Adam's first step moves a parameter by
+    g / (|g| + eps) * lr, about lr * sign(g): where a gradient is near eps
+    (1e-8, after the clip) a small difference between the two devices'
+    gradients moves it anywhere in (-lr, lr). The ConvNeXt latent encoder,
+    the heads and the decoders (smooth activations) agree closely; the
+    resnet18's ReLUs and max-pool can switch at other elements on the two
+    devices (inputs within rounding of a tie), which moves its weight
+    gradients further apart. Hence: every move within 2 lr (a flip), and
+    moves beyond 1 % of lr on at most 1e-4 of the parameters outside the
+    resnet and 1 % of those inside it. Raises on a miss."""
+    import torch
+
+    from coolchic_tpu_torch.hypernet import WholeNetState
+    from coolchic_tpu_torch.hypernet.training import make_wholenet_train_step, state_leaves
+    from coolchic_tpu_torch.params import tree_map
+    from coolchic_tpu_torch.train.presets import TrainerPhase
+
+    phase = TrainerPhase(lr=HT_CPU_LR, max_itr=1, quantizer_type="none",
+                         quantizer_noise_type="none")
+    out = {}
+    for device in ("cuda", "cpu"):
+        s = WholeNetState(*[tree_map(lambda t: t.to(device).clone(), tree) for tree in state])
+        before = [t.detach().cpu().clone() for t in state_leaves(s)]
+        tx, step = make_wholenet_train_step(net, phase)
+        t0 = time.perf_counter()
+        s, _, loss = step(s, tx.init(s), imgs.to(device), 1e-3, None, HT_CPU_LR, 0.3, 0.0)
+        loss = loss.item()
+        out[device] = (loss, [a.cpu() - b for a, b in zip(state_leaves(s), before)],
+                       time.perf_counter() - t0)
+    (loss_card, moves_card, card_s), (loss_cpu, moves_cpu, cpu_s) = out["cuda"], out["cpu"]
+    in_resnet = [k.startswith("ResNet") for k in state.hypernet]
+    in_resnet += [False] * (len(moves_card) - len(in_resnet))
+    diffs = {True: [], False: []}
+    for a, b, r in zip(moves_card, moves_cpu, in_resnet):
+        diffs[r].append((a - b).abs().flatten())
+    diff = {r: torch.cat(d) for r, d in diffs.items()}
+    share = {r: float((d > 0.01 * HT_CPU_LR).double().mean()) for r, d in diff.items()}
+    max_diff = max(float(d.max()) for d in diff.values())
+    res = {"batch": int(imgs.shape[0]), "lr": HT_CPU_LR, "loss_card": loss_card,
+           "loss_cpu": loss_cpu, "loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "max_abs_move_diff": max_diff, "share_beyond_1pct_lr_resnet": share[True],
+           "share_beyond_1pct_lr_elsewhere": share[False],
+           "n_params": {"resnet": int(diff[True].numel()), "elsewhere": int(diff[False].numel())},
+           "card_s": card_s, "cpu_s": cpu_s}
+    if res["loss_rel_err"] > 1e-4 or max_diff > 2 * HT_CPU_LR or share[True] > 1e-2 \
+            or share[False] > 1e-4:
+        raise AssertionError(f"train step card vs CPU: {res}")
+    return res
+
+
+def phase_hypernet_train_path() -> int:
+    """The hypernet trainer at full width through its CLI
+    (``hypernet_train.main``, ``--synthetic --device cuda``, the JAX CLI's
+    no-config default, samples cut): ``--mode no`` with checkpoints, ``--mode
+    delta --init_from`` it, ``--resume`` that run to more samples, ``--mode
+    small``, then ``iterations_to_match`` of the resumed delta net. Before
+    it, one train step on the card against the CPU. Returns the kernel
+    launches of the path. Raises on any miss."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch import hypernet as hn
+    from coolchic_tpu_torch import hypernet_train
+    from coolchic_tpu_torch.eval.hypernet import iterations_to_match
+    from coolchic_tpu_torch.hypernet import DeltaWholeNet, training
+    from coolchic_tpu_torch.hypernet import inference
+    from coolchic_tpu_torch.metalearning import synthetic_batches
+    from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.utils.profile_step import profile_hypernet_train
+    from coolchic_tpu_torch.utils.types import DecoderConfig
+
+    def clock() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    root = OUT_DIR / "hypernet_train"
+    shutil.rmtree(root, ignore_errors=True)
+    workdirs = {m: root / m for m in ("no", "delta", "small")}
+    cfg = DecoderConfig().to_coolchic_config((HT_PATCH, HT_PATCH))
+
+    # The one-step check, from the delta net's init with the heads' output
+    # layers drawn as in the hypernet path (at init every delta is zero, and
+    # so is the gradient of the heads' hidden layers).
+    net = DeltaWholeNet(cfg, backbone_arch="resnet18")
+    state = net.init(0, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+    for head in ("MLP_0", "MLP_1", "MLP_2"):
+        key = f"{head}.Dense_{getattr(net.module, head).n_layers - 1}.weight"
+        state.hypernet[key] = HN_HEAD_STD * torch.randn(
+            state.hypernet[key].shape, generator=gen, device="cuda")
+    imgs = torch.tensor(next(synthetic_batches(HT_CPU_BATCH, (HT_PATCH, HT_PATCH), seed=7)))
+    card_vs_cpu = hypernet_step_card_vs_cpu(net, state, imgs)
+    del net, state
+
+    common = ["--synthetic", "--device", "cuda", "--disable_wandb", "--patch_size",
+              str(HT_PATCH), "--batch_size", str(HT_BATCH), "--lmbda", "1e-3"]
+    runs = [
+        ("no", ["--mode", "no", "--workdir", str(workdirs["no"]), "--n_samples",
+                str(HT_SAMPLES["no"]), "--checkpointing_freq", str(HT_CKPT_FREQ["no"])]),
+        ("delta", ["--mode", "delta", "--init_from", str(workdirs["no"]), "--workdir",
+                   str(workdirs["delta"]), "--n_samples", str(HT_SAMPLES["delta"]),
+                   "--checkpointing_freq", str(HT_CKPT_FREQ["delta"])]),
+        ("resume", ["--mode", "delta", "--resume", "--workdir", str(workdirs["delta"]),
+                    "--n_samples", str(HT_SAMPLES["resume"]), "--checkpointing_freq",
+                    str(HT_CKPT_FREQ["resume"])]),
+        ("small", ["--mode", "small", "--workdir", str(workdirs["small"]), "--n_samples",
+                   str(HT_SAMPLES["small"])]),
+    ]
+    emit({"phase": "hypernet_train_path_config", "backbone": "resnet18", "n_hidden_channels": 64,
+          "heads": {"synthesis": [1024, 3], "arm": [1024, 3], "upsampling": [256, 3]},
+          "output_activation": "tanh", "patch": [HT_PATCH, HT_PATCH], "dec_cfg": vars(
+              DecoderConfig()), "batch": HT_BATCH, "lmbda": 1e-3,
+          "phase": {"lr": 1e-4, "schedule_lr": True, "quantizer": "softround + gaussian",
+                    "softround_temperature": [0.3, 0.3], "noise_parameter": [0.25, 0.25]},
+          "runs": {name: args for name, args in runs},
+          "iterations_to_match": {"max_itr": HT_MATCH[0], "check_every": HT_MATCH[1]},
+          "reduced": {"n_samples_default": 10_000, "n_samples": HT_SAMPLES,
+                      "iterations_to_match_max_itr_default": 2000}})
+
+    # What each run hands train_wholenet, its wall time, and every checkpoint
+    # write (during the training loop, or the CLI's final one).
+    calls, writes, current = [], [], {"run": None, "in_loop": False}
+    real_train, real_save = hn.train_wholenet, inference.save_checkpoint
+
+    def spy_train(net, state, data_iter, eval_imgs, **kw):
+        current["in_loop"] = True
+        t0 = clock()
+        best, logs = real_train(net, state, data_iter, eval_imgs, **kw)
+        calls.append({"net": net, "state": state, "eval_imgs": eval_imgs, "kw": kw,
+                      "best": best, "logs": logs, "wall_s": clock() - t0})
+        current["in_loop"] = False
+        return best, logs
+
+    def spy_save(state, path, samples_seen=0):
+        t0 = time.perf_counter()
+        real_save(state, path, samples_seen)
+        writes.append({"file": f"{Path(path).parent.name}/{Path(path).name}",
+                       "seconds": time.perf_counter() - t0, **current})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ar.launch_count = 0
+    ar.launches_by_batch.clear()
+    hn.train_wholenet = spy_train
+    inference.save_checkpoint = training.save_checkpoint = spy_save
+    resume_from = None
+    try:
+        for name, args in runs:
+            current["run"] = name
+            if name == "resume":
+                resume_from = max(workdirs["delta"].glob("samples_*.pkl"),
+                                  key=lambda q: int(q.stem.split("_")[1]))
+            if hypernet_train.main(common + args) != 0:
+                raise AssertionError(f"hypernet_train {name} returned non-zero")
+        delta_net = calls[2]["net"]
+        delta_best = inference.load_checkpoint(workdirs["delta"], device="cuda")
+        img = torch.tensor(np.round(synthetic_image(HT_PATCH, HT_PATCH, seed=0) * 255.0) / 255.0,
+                           device="cuda")
+        t0 = clock()
+        match = iterations_to_match(delta_net, delta_best, img, 1e-3, 0, max_itr=HT_MATCH[0],
+                                    check_every=HT_MATCH[1])
+        match_s = clock() - t0
+    finally:
+        hn.train_wholenet = real_train
+        inference.save_checkpoint = training.save_checkpoint = real_save
+    launches = ar.launch_count
+    launches_by_batch = check_batch_sizes_seen("the hypernet train path", HT_BATCH_SIZES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    n_validations = sum(len(c["logs"]) for c in calls)
+    n_match_evals = (HT_MATCH[0] // HT_MATCH[1]) * (1 + 1) + 1
+    if launches < n_validations + n_match_evals:
+        raise AssertionError(f"{launches} launches for {n_validations} validations and "
+                             f"{n_match_evals} evaluations of iterations_to_match")
+
+    # Resume holds: the state the resumed run starts from is the checkpoint it loads.
+    ckpt_state, ckpt_samples = inference.load_checkpoint_meta(resume_from, device="cuda")
+    resumed = calls[2]
+    if resumed["kw"]["samples_offset"] != ckpt_samples or not all(
+            torch.equal(a, b) for a, b in zip(training.state_leaves(resumed["state"]),
+                                              training.state_leaves(ckpt_state))):
+        raise AssertionError(f"the resumed run does not start from {resume_from.name}")
+    seen = [log.samples_seen for log in resumed["logs"]]
+    if seen[-1] != HT_SAMPLES["resume"] or min(seen) <= ckpt_samples:
+        raise AssertionError(f"the resumed run's validations at {seen}")
+
+    # Before and after: each run's start state and best state on its eval batch.
+    per_run = {}
+    for (name, _), call in zip(runs, calls):
+        ev = {}
+        for when, st in (("before", call["state"]), ("after", call["best"])):
+            m = training.evaluate_wholenet(call["net"], st, call["eval_imgs"], 1e-3)
+            ev[when] = {k: float(v) for k, v in m.items()}
+        n_steps = max((call["kw"]["n_samples"] - call["kw"]["samples_offset"]) // HT_BATCH, 1)
+        ckpt_s = sum(w["seconds"] for w in writes if w["run"] == name and w["in_loop"])
+        per_run[name] = {
+            "steps": n_steps, "wall_s": call["wall_s"], "steps_per_s": n_steps / call["wall_s"],
+            "samples_per_s": n_steps * HT_BATCH / call["wall_s"],
+            "steps_per_s_without_checkpoints": n_steps / (call["wall_s"] - ckpt_s),
+            "samples_offset": call["kw"]["samples_offset"],
+            "validations": [log._asdict() for log in call["logs"]], "eval": ev}
+    if not per_run["no"]["eval"]["after"]["loss"] < per_run["no"]["eval"]["before"]["loss"]:
+        raise AssertionError(f"the NO run did not learn: {per_run['no']['eval']}")
+    for name, run in per_run.items():
+        if not all(math.isfinite(v) for e in run["eval"].values() for v in e.values()):
+            raise AssertionError(f"{name}: eval metrics not finite: {run['eval']}")
+    if not all(math.isfinite(v) for v in match["scratch_losses"]) or not math.isfinite(
+            match["one_shot_loss"]):
+        raise AssertionError(f"iterations_to_match: {match}")
+
+    # evaluate_wholenet at B = 8 (wall, synchronised), after the counted run.
+    call = calls[2]
+    eval_ms = []
+    for _ in range(5):
+        t0 = clock()
+        training.evaluate_wholenet(call["net"], call["best"], call["eval_imgs"], 1e-3)
+        eval_ms.append(1e3 * (clock() - t0))
+    t0 = time.perf_counter()
+    profiles = {m: profile_hypernet_train(HT_BATCH, (HT_PATCH, HT_PATCH), HT_PROFILE_STEPS, m)
+                for m in ("no", "delta", "small")}
+    emit({"phase": "hypernet_train_step_profile", "seconds": time.perf_counter() - t0, **{
+        m: {k: line[k] for k in ("hypernet_params", "wall_ms", "device_ms_per_iter",
+                                 "kernels_per_iter", "device_busy_share", "top", "top_ops",
+                                 "forward", "max_memory_allocated_bytes")}
+        for m, line in profiles.items()}})
+    for name, run in per_run.items():
+        profiled = {"resume": "delta"}.get(name, name)
+        run["device_ms_per_step_b8"] = profiles[profiled]["device_ms_per_iter"]
+    emit({
+        "phase": "hypernet_train_path",
+        "launches": launches, "arm_rate_launches_by_batch": launches_by_batch,
+        "validations": n_validations, "card_vs_cpu_step": card_vs_cpu, "runs": per_run,
+        "evaluate_wholenet_ms_b8": statistics.median(eval_ms),
+        "checkpoint_writes": writes,
+        "resume": {"from": resume_from.name, "samples_offset": ckpt_samples,
+                   "validations_at": seen},
+        "iterations_to_match": {**match, "seconds": match_s},
+        "max_memory_allocated_bytes": peak_bytes,
+    })
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1328,16 +1618,19 @@ def main() -> int:
     batch_launches = timed("batch_path", phase_batch_path, single_steps_per_s)
     video_launches = timed("video_path", phase_video_path)
     hypernet_launches = timed("hypernet_path", phase_hypernet_path, run.result.params)
+    hypernet_train_launches = timed("hypernet_train_path", phase_hypernet_train_path)
     emit({"kernels": [{
         "name": "arm_rate",
         "route": "cuda",
         "source": "coolchic_tpu_torch/csrc/arm_rate.cu",
         "replaces": "coolchic_tpu/ops/pallas_arm.py:86",
-        "launches": launches + batch_launches + video_launches + hypernet_launches,
+        "launches": (launches + batch_launches + video_launches + hypernet_launches
+                     + hypernet_train_launches),
         "launches_main_path": launches,
         "launches_batch_path": batch_launches,
         "launches_video_path": video_launches,
         "launches_hypernet_path": hypernet_launches,
+        "launches_hypernet_train_path": hypernet_train_launches,
         "max_abs_err": pyramid["max_abs_err"],
         "ms": pyramid["ms"],
         "plain_ms": pyramid["plain_ms"],
@@ -1351,6 +1644,7 @@ def main() -> int:
         "ms_by_batch": pyramid["ms_by_batch"],
         "n_latents_1080p": pyramid["n_latents_1080p"],
         "ms_1080p_by_batch": pyramid["ms_1080p_by_batch"],
+        "ms_256x256_by_batch": pyramid["ms_256x256_by_batch"],
         "bound_1080p_ms": pyramid["bound_1080p_ms"],
         "bound_f64_1080p_ms": pyramid["bound_f64_1080p_ms"],
         "library_ms": None,  # no single PyTorch call computes this function

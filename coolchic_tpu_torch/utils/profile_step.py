@@ -1,7 +1,7 @@
 """Where the time of one training step and one eval forward goes, on a GPU.
 
     python -m coolchic_tpu_torch.utils.profile_step [--frame_type I|P|B]
-        [--img_size HxW] [--hypernet] [B ...]
+        [--img_size HxW] [--hypernet | --hypernet_train] [B ...]
 
 For each batch size B given (default: 1), builds B default decoders (arm
 24,2; 40-wide synthesis; 7 grids) at 512x768 (or ``--img_size``) with random
@@ -24,6 +24,14 @@ With ``--hypernet``: the prediction of B images by the hypernet of
 widths, seeded init) at the image size, no gradient: wall and device time
 per prediction, by kernel and by operator (``aten::`` ops, their own device
 time, so that a layer's share shows).
+
+With ``--hypernet_train``: one train step of that whole net
+(``hypernet/training.py::make_wholenet_train_step``: the training forward of
+B images and their B decoders, the backward, the clip and Adam over its
+21.8 M parameters) at 256x256 (or ``--img_size``), JAX's default phase
+(softround + gaussian noise): wall and device time per step, kernels, busy
+share, the top kernels and ``aten::`` ops of the step and of its forward
+alone, and the peak device memory.
 """
 
 from __future__ import annotations
@@ -77,8 +85,6 @@ def _op_table(prof, n_iter: int, top: int = 12) -> list:
 def profile_hypernet(batch: int, img_size=(H, W), steps: int = 5) -> dict:
     """Profile the hypernet's prediction of ``batch`` images of ``img_size``
     over ``steps`` iterations; prints and returns one JSON line."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
     from coolchic_tpu_torch.hypernet import DeltaWholeNet
     from coolchic_tpu_torch.train.step import make_generator
     from coolchic_tpu_torch.utils.types import DecoderConfig
@@ -93,21 +99,7 @@ def profile_hypernet(batch: int, img_size=(H, W), steps: int = 5) -> dict:
     def predict():
         net.predict(state, imgs)
 
-    for _ in range(2):
-        predict()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        predict()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
-        for i in range(1 + steps):
-            predict()
-            if i in (0, steps):
-                torch.cuda.synchronize()
-            prof.step()
+    wall_ms, prof = _timed_profile(predict, steps)
     table = _device_table(prof, steps)
     table.pop("arm_rate_calls")
     line = {"what": "hypernet_predict", "batch": batch, "img_size": list(img_size),
@@ -120,23 +112,113 @@ def profile_hypernet(batch: int, img_size=(H, W), steps: int = 5) -> dict:
     return line
 
 
+def _timed_profile(fn, steps: int):
+    """(wall ms per call over ``steps`` synchronised calls after two warm-up
+    calls, the profiler over ``steps`` more after one unrecorded call)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+        for i in range(1 + steps):
+            fn()
+            if i in (0, steps):
+                torch.cuda.synchronize()
+            prof.step()
+    return wall_ms, prof
+
+
+def profile_hypernet_train(batch: int, img_size=(256, 256), steps: int = 5,
+                           mode: str = "delta") -> dict:
+    """Profile one train step of the full-width whole net (``mode``: "delta",
+    or "no" / "small" for ``NOWholeNet`` / ``SmallDeltaWholeNet``) on
+    ``batch`` images of ``img_size`` over ``steps`` steps, and its training
+    forward alone; prints and returns one JSON line."""
+    from coolchic_tpu_torch.hypernet import DeltaWholeNet, NOWholeNet, SmallDeltaWholeNet
+    from coolchic_tpu_torch.hypernet.training import (
+        _batch_loss, make_wholenet_train_step, state_leaves,
+    )
+    from coolchic_tpu_torch.train.presets import TrainerPhase
+    from coolchic_tpu_torch.train.step import make_generator
+    from coolchic_tpu_torch.utils.types import DecoderConfig
+
+    device = torch.device("cuda")
+    cfg = DecoderConfig().to_coolchic_config(img_size)
+    net = {"no": NOWholeNet, "small": SmallDeltaWholeNet,
+           "delta": lambda c: DeltaWholeNet(c, backbone_arch="resnet18")}[mode](cfg)
+    state = net.init(0, device=device)
+    leaves = state_leaves(state)
+    gen = make_generator(device, 0)
+    imgs = torch.rand(batch, 3, *img_size, generator=gen, device=device)
+    phase = TrainerPhase(lr=1e-4, max_itr=1, schedule_lr=True, quantizer_type="softround",
+                         quantizer_noise_type="gaussian", softround_temperature=(0.3, 0.3),
+                         noise_parameter=(0.25, 0.25))
+    tx, step = make_wholenet_train_step(net, phase)
+    opt = tx.init(state)
+
+    def train():
+        step(state, opt, imgs, 1e-3, gen, phase.lr, 0.3, 0.25)
+
+    def forward():
+        for t in leaves:
+            t.requires_grad_(True)
+        _batch_loss(net, state, imgs, 1e-3, phase.quantizer_noise_type, phase.quantizer_type,
+                    0.3, 0.25, gen)
+        for t in leaves:
+            t.requires_grad_(False)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall_ms, prof = _timed_profile(train, steps)
+    peak = torch.cuda.max_memory_allocated()
+    table = _device_table(prof, steps)
+    table.pop("arm_rate_calls")
+    fwd_wall_ms, fwd_prof = _timed_profile(forward, steps)
+    fwd_table = _device_table(fwd_prof, steps)
+    line = {"what": "hypernet_train_step", "mode": mode, "batch": batch,
+            "img_size": list(img_size),
+            "steps": steps, "hypernet_params": sum(t.numel() for t in state.hypernet.values()),
+            "wall_ms": wall_ms, "device_busy_share": table["device_ms_per_iter"] / wall_ms,
+            **table, "top_ops": _op_table(prof, steps),
+            "forward": {"wall_ms": fwd_wall_ms, "device_ms_per_iter": fwd_table[
+                "device_ms_per_iter"], "kernels_per_iter": fwd_table["kernels_per_iter"],
+                        "top_ops": _op_table(fwd_prof, steps)},
+            "max_memory_allocated_bytes": peak, "device": torch.cuda.get_device_name(0)}
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step needs a GPU", file=sys.stderr)
         return 1
     p = argparse.ArgumentParser(description="profile one train step and one eval forward")
     p.add_argument("--frame_type", choices=["I", "P", "B"], default="I")
-    p.add_argument("--img_size", default=f"{H}x{W}", help="HxW")
-    p.add_argument("--hypernet", action="store_true",
-                   help="profile the hypernet's prediction instead")
+    p.add_argument("--img_size", default=None,
+                   help=f"HxW (default {H}x{W}; 256x256 with --hypernet_train)")
+    what = p.add_mutually_exclusive_group()
+    what.add_argument("--hypernet", action="store_true",
+                      help="profile the hypernet's prediction instead")
+    what.add_argument("--hypernet_train", action="store_true",
+                      help="profile one train step of the hypernet instead")
     p.add_argument("batch", type=int, nargs="*")
     args = p.parse_args(argv)
-    img_size = tuple(int(v) for v in args.img_size.split("x"))
+    default_size = "256x256" if args.hypernet_train else f"{H}x{W}"
+    img_size = tuple(int(v) for v in (args.img_size or default_size).split("x"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for batch in args.batch or [1]:
         if args.hypernet:
             profile_hypernet(batch, img_size)
+        elif args.hypernet_train:
+            profile_hypernet_train(batch, img_size)
         else:
             profile_batch(batch, args.frame_type, img_size)
     return 0

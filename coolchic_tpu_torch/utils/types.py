@@ -1,11 +1,14 @@
-"""Configuration of one encode run (an image, or a ``.yuv`` video).
+"""Configuration of one encode run (an image, or a ``.yuv`` video), and of a
+hypernet training run.
 
 Counterpart of the CLI part of ``coolchic_tpu/utils/types.py``
-(``DecoderConfig``, ``EncoderConfig``, ``RunConfig``, ``UserConfig``), as
-plain dataclasses. Decoder configs are read from ``cfg/dec/*.yaml``; the
-training recipe from ``preset_cfg/*.yaml`` (``train/presets.py``). A
-``UserConfig`` YAML gives ``input``, ``lmbda`` and ``dec_cfg`` each as a
-value or a list and expands into the cartesian product of runs.
+(``DecoderConfig``, ``EncoderConfig``, ``RunConfig``, ``UserConfig``,
+``HyperNetParams``, ``HyperNetConfig``, ``HypernetRunConfig``), as plain
+dataclasses. Decoder configs are read from ``cfg/dec/*.yaml``; the training
+recipe from ``preset_cfg/*.yaml`` (``train/presets.py``). A ``UserConfig``
+YAML gives ``input``, ``lmbda`` and ``dec_cfg`` each as a value or a list and
+expands into the cartesian product of runs. A ``HypernetRunConfig`` YAML is
+read by ``load_config``.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import itertools
 from dataclasses import dataclass, field, fields, replace
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Type, TypeVar
 
 import torch
 
@@ -184,6 +187,106 @@ class UserConfig:
                       enc_cfg=self.enc_cfg, dec_cfg=replace(dec_cfg))
             for inp, lmbda, dec_cfg in itertools.product(self.input, self.lmbda, self.dec_cfg)
         ]
+
+
+@dataclass
+class HyperNetParams:
+    """Widths of one weight head of the hypernet."""
+
+    hidden_dim: int
+    n_layers: int
+    biases: bool = True
+    only_biases: bool = False
+    output_activation: Optional[str] = "tanh"
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "HyperNetParams":
+        return cls(**_known_fields(cls, d, "hypernet head config"))
+
+
+RESNET_OPTIONS = ("resnet18", "resnet50", "resnet101")
+
+
+@dataclass
+class HyperNetConfig:
+    """The amortized encoder: its decoder, heads, backbone and patch size."""
+
+    dec_cfg: DecoderConfig
+    synthesis: HyperNetParams = field(default_factory=lambda: HyperNetParams(1024, 3))
+    arm: HyperNetParams = field(default_factory=lambda: HyperNetParams(1024, 3))
+    upsampling: HyperNetParams = field(default_factory=lambda: HyperNetParams(256, 3))
+    backbone_arch: str = "resnet18"
+    double_backbone: bool = False
+    n_hidden_channels: int = 64
+    patch_size: Tuple[int, int] = (256, 256)
+
+    def __post_init__(self):
+        if self.backbone_arch not in RESNET_OPTIONS:
+            raise ValueError(f"backbone_arch must be one of {RESNET_OPTIONS}, "
+                             f"found {self.backbone_arch}")
+        self.patch_size = tuple(int(v) for v in self.patch_size)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "HyperNetConfig":
+        kw = _known_fields(cls, d, "hypernet config")
+        if "dec_cfg" not in kw:
+            raise ValueError("the hypernet config needs 'dec_cfg'")
+        kw["dec_cfg"] = DecoderConfig.from_dict(kw["dec_cfg"])
+        for key in ("synthesis", "arm", "upsampling"):
+            if key in kw:
+                kw[key] = HyperNetParams.from_dict(kw[key])
+        return cls(**kw)
+
+    @property
+    def n_latents(self) -> int:
+        return len([x for x in self.dec_cfg.n_ft_per_res.split(",") if x != ""])
+
+
+@dataclass
+class HypernetRunConfig:
+    """One hypernet training run (``hypernet_train.py --config``). The
+    recipe's first phase is the training phase; a recipe whose name holds
+    "hnet" may have no quantization phase."""
+
+    n_samples: int
+    recipe: Preset
+    hypernet_cfg: HyperNetConfig
+    batch_size: int = 1
+    lmbda: float = 1e-3
+    unfreeze_backbone: int = 0
+    workdir: Optional[Path] = None
+    model_weights: Optional[Path] = None
+    checkpoint: Optional[Path] = None
+    disable_wandb: bool = False
+    unique_id: Optional[str] = None
+    user_tag: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "HypernetRunConfig":
+        kw = _known_fields(cls, d, "hypernet run config")
+        for key in ("n_samples", "recipe", "hypernet_cfg"):
+            if key not in kw:
+                raise ValueError(f"the hypernet run config needs '{key}'")
+        kw["recipe"] = Preset.from_dict(kw["recipe"])
+        kw["hypernet_cfg"] = HyperNetConfig.from_dict(kw["hypernet_cfg"])
+        if "lmbda" in kw:
+            kw["lmbda"] = float(kw["lmbda"])  # YAML reads "1e-3" as a string
+        for key in ("workdir", "model_weights", "checkpoint"):
+            if kw.get(key) is not None:
+                kw[key] = Path(kw[key])
+        return cls(**kw)
+
+
+T = TypeVar("T")
+
+
+def load_config(config_path: str | Path, config_class: Type[T]) -> T:
+    """Read a YAML file into ``config_class`` (``HypernetRunConfig``, or any
+    config here with ``from_dict``)."""
+    import yaml
+
+    with open(config_path) as stream:
+        return config_class.from_dict(yaml.safe_load(stream) or {})
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

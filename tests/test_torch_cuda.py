@@ -414,3 +414,67 @@ def test_quantize_model_deltas_on_the_card_matches_the_cpu(cuda):
         assert (got.q_step_w, got.q_step_b, got.expgol_w, got.expgol_b) == (
             want.q_step_w, want.q_step_b, want.expgol_w, want.expgol_b), m
         assert abs(got.rate_bits - want.rate_bits) <= 1e-4 * max(1.0, want.rate_bits)
+
+
+def _train_step_on(device, net, state, img, lr):
+    """One train step of the deterministic quantizer on ``device``: (loss,
+    the parameters before and after, as numpy)."""
+    from coolchic_tpu_torch.hypernet import WholeNetState
+    from coolchic_tpu_torch.hypernet.training import make_wholenet_train_step, state_leaves
+    from coolchic_tpu_torch.params import tree_map
+    from coolchic_tpu_torch.train.presets import TrainerPhase
+
+    phase = TrainerPhase(lr=lr, max_itr=1, quantizer_type="none", quantizer_noise_type="none")
+    state = WholeNetState(*[tree_map(lambda t: t.to(device).clone(), tree) for tree in state])
+    before = [t.cpu().numpy().copy() for t in state_leaves(state)]
+    tx, step = make_wholenet_train_step(net, phase)
+    state, _, loss = step(state, tx.init(state), torch.tensor(img, device=device), 1e-3, None,
+                          lr, 0.3, 0.0)
+    return loss.item(), before, [t.cpu().numpy().copy() for t in state_leaves(state)]
+
+
+def test_hypernet_train_step_on_the_card_matches_the_cpu(cuda):
+    """One whole-net train step (deterministic quantizer) from the same state
+    and images: the loss to 1e-4 relative; the moves of the parameters
+    (Adam's first step, g / (|g| + eps) * lr) within 2 lr everywhere (a flip
+    where g is near eps), and within 1 % of lr but for at most 1e-4 of the
+    parameters outside the resnet and 1 % inside it (its ReLUs and max-pool
+    switch at other elements on the two devices: see ``chip_smoke.py::
+    hypernet_step_card_vs_cpu``). The training forward runs the plain ARM:
+    no kernel launch."""
+    net, state, img = _hypernet()
+    lr = 1e-4
+    count = ops.launch_count
+    loss_card, before, after_card = _train_step_on("cuda", net, state, img, lr)
+    assert ops.launch_count == count
+    loss_cpu, _, after_cpu = _train_step_on("cpu", net, state, img, lr)
+    np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-4)
+    n_resnet = sum(k.startswith("ResNet") for k in state.hypernet)
+    in_resnet = [k.startswith("ResNet") for k in state.hypernet] + [False] * (
+        len(before) - len(state.hypernet))
+    assert n_resnet > 0
+    for resnet, limit in ((True, 1e-2), (False, 1e-4)):
+        diff = np.concatenate([np.abs((a - b0) - (c - b0)).ravel() for a, c, b0, r in zip(
+            after_card, after_cpu, before, in_resnet) if r == resnet])
+        assert diff.max() <= 2 * lr and float((diff > 0.01 * lr).mean()) <= limit, resnet
+
+
+def test_evaluate_wholenet_launches_the_kernel_once(cuda):
+    """``evaluate_wholenet`` of three images: one launch, and the CPU's
+    metrics."""
+    from coolchic_tpu_torch.hypernet import WholeNetState
+    from coolchic_tpu_torch.hypernet.training import evaluate_wholenet
+    from coolchic_tpu_torch.params import tree_map
+
+    net, state, img = _hypernet()
+    out = {}
+    for d in ("cpu", "cuda"):
+        s = WholeNetState(*[tree_map(lambda t: t.to(d), tree) for tree in state])
+        count = ops.launch_count
+        out[d] = {k: v.item() for k, v in evaluate_wholenet(
+            net, s, torch.tensor(img, device=d), 1e-3).items()}
+        assert ops.launch_count == count + (d == "cuda")
+    np.testing.assert_allclose(out["cuda"]["loss"], out["cpu"]["loss"], rtol=1e-4)
+    np.testing.assert_allclose(out["cuda"]["rate_latent_bpp"], out["cpu"]["rate_latent_bpp"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(out["cuda"]["psnr_db"], out["cpu"]["psnr_db"], atol=0.01)

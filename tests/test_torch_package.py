@@ -49,7 +49,9 @@ def test_importing_the_encoder_loads_no_jax():
             "coolchic_tpu_torch.video.encoder, coolchic_tpu_torch.video.intercoding, "
             "coolchic_tpu_torch.bitstream.decode, coolchic_tpu_torch.bitstream.inter, "
             "coolchic_tpu_torch.utils.sanity_check, coolchic_tpu_torch.hypernet.inference, "
-            "coolchic_tpu_torch.hypernet.finetune; "
+            "coolchic_tpu_torch.hypernet.finetune, coolchic_tpu_torch.hypernet.training, "
+            "coolchic_tpu_torch.hypernet_train, coolchic_tpu_torch.eval.hypernet, "
+            "coolchic_tpu_torch.metalearning, coolchic_tpu_torch.utils.logging; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'coolchic_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
