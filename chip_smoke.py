@@ -3,8 +3,9 @@
 one full-width image encode through the port's entry point to a ``.cool``
 bitstream, that stream decoded back, a batch of eight full-width images of
 mixed sizes encoded at once, a 1080p video GOP (I, P, B) encoded to one
-stream, the hypernet's one-shot encode of eight images, and the hypernet's
-training through its CLI.
+stream, the hypernet's one-shot encode of eight images, the hypernet's
+training through its CLI, and the multi-GPU modules at world size 1 with
+the encode tools.
 
     python3 chip_smoke.py
 
@@ -156,6 +157,37 @@ Phases, one JSON line each:
      ``evaluate_wholenet`` ms at B = 8, the peak memory and, from
      ``utils/profile_step.py``, a train step of each whole net at B = 8 by
      kernel and by operator, and its forward alone.
+  9. multi-GPU and tools path (``parallel/`` at world size 1, the tools):
+     ``parallel.launch(encode_batch_sharded, 1, "cuda", ...)`` on 4 of the
+     batch path's images (the default DecoderConfig, full width; the c3x
+     recipe cut to warm-up 10 per phase, phases 20 / 10 / 10;
+     ``with_quant_info``), one rank on NCCL, held to ``encode_frame_batch``
+     on the same images and seeds in this process, both with cuDNN's
+     deterministic algorithms: per image PSNR within 0.1 dB, latent rate
+     within 5 % and loss within 2 %. The same work on the same card, but the
+     synthesis' replicate padding sums its backward with atomics, and the
+     encode's Adam steps carry that far: up to 0.022 dB, 0.52 % and 0.44 %
+     apart in two runs with phases 40 / 10 / 10 on an H100 80GB HBM3
+     (700 W). A precision mismatch reads beyond the tolerance: a rank on
+     cuDNN's TF32 default against this process's f32 read 0.15 dB, 7.1 % and
+     4.9 % (ranks now take the caller's switches). The launcher's startup
+     (spawn, imports, the group's init) and the first NCCL barrier's are
+     printed on their own lines. ``hypernet_train --mode no --data_parallel
+     1`` against ``--data_parallel 0`` (the no-config default widths,
+     256x256, batch 8, 8 steps): the final checkpoints' eval losses within
+     1e-4 relative (the one-device semantics: the loss summed in shares, the
+     gradients through an all-reduce), samples/s of both.
+     ``encode_simpler.encode`` with ``--budget debug`` on the main path's
+     512x768 image (a ``.ppm``: the machine has no PIL): decoded PSNR within
+     0.1 dB of the estimate, real latent rate within 20 % where the estimate
+     is over 0.05 bpp. ``retrain_latents`` with ``--init zeros`` for 50
+     iterations on frame 0 of a copy of the video path's
+     ``video_encoder.pkl`` (1080p 4:2:0): the loss falls.
+     ``detailed_eval_metrics`` of the main path's trained decoder: its loss
+     and total rate equal ``eval_metrics``' (relative 1e-6), the per-grid
+     rates sum to the latent rate. The kernel launches of the ranks count in
+     this process (``launch`` adds them); every launch at a batch size held
+     by the ``arm_rate_batch`` checks at its pyramid.
 Then a ``kernels`` JSON line, the card's name and power limit, and the
 final ``{"ok": true, "device": ...}`` line. Any failure raises (exit != 0).
 
@@ -194,12 +226,12 @@ PHASE_MAX_ITR = (600, 120, 60)  # c3x: 10600 (--n_itr), 1500, 1000
 # Batch sizes of the arm_rate_batch kernel checks: those of the main path (one
 # image; 5, then 2 warm-up candidates) and of the batch path (8 images; 40,
 # then 16 candidates). Each gives an image another share of the grid.
-BATCH_SIZES = (1, 2, 5, 8, 16, 40)
+BATCH_SIZES = (1, 2, 3, 4, 5, 8, 16, 20, 40)  # 3, 4, 20: multi_gpu_and_tools_path
 BATCH_LMBDAS = (1e-3,) * 4 + (4e-3,) * 4
 BATCH_VALID_HW = {3: (480, 720), 7: (512, 704)}  # image index -> true (H, W)
 BATCH_WARMUP_MAX_ITR = 30
 BATCH_PHASE_MAX_ITR = (200, 40, 30)
-BATCH_PROFILE_STEPS = 5  # iterations of each profiled step and eval forward at B = 1 and 8
+BATCH_PROFILE_STEPS = 1  # iterations of each profiled step and eval forward at B = 1 and 8
 
 # The video path: a 3-frame 1920x1080 4:2:0 GOP (I, P at display 2, B at
 # display 1), one frame after another; each frame's warm-up trains 5, then 2
@@ -212,7 +244,7 @@ VIDEO_LMBDA = 1e-3
 VIDEO_WARMUP_MAX_ITR = 20
 VIDEO_PHASE_MAX_ITR = (120, 24, 16)
 VIDEO_SHIFT = (3, 2)  # pixels the texture moves per frame (x, y)
-VIDEO_PROFILE_STEPS = 3  # the profiler's processing of a 1080p P step's 16,219 kernels is slow
+VIDEO_PROFILE_STEPS = 1  # the profiler's processing of a 1080p P step's 16,219 kernels is slow
 
 # The hypernet path: DeltaWholeNet (resnet18, the HyperNetConfig widths) on
 # 8 images of the batch path's size, seeds 0-7; streams for images 0 and 1.
@@ -235,7 +267,17 @@ HT_CKPT_FREQ = {"no": 320, "delta": 160, "resume": 80}  # samples between checkp
 HT_CPU_BATCH = 2  # the one-step check of the card against the CPU
 HT_CPU_LR = 1e-4
 HT_MATCH = (200, 50)  # iterations_to_match's max_itr, check_every
-HT_PROFILE_STEPS = 2
+HT_PROFILE_STEPS = 1
+
+# The multi-GPU and tools path: the sharded encode of 4 batch-path images
+# (512x768, seeds 0-3, the default DecoderConfig) at world size 1 on NCCL;
+# hypernet_train --data_parallel 1 against 0 (NO, 256x256, batch 8);
+# encode_simpler --budget debug; retrain_latents on the video path's frame 0.
+MG_LMBDAS = (1e-3, 1e-3, 4e-3, 4e-3)
+MG_WARMUP_MAX_ITR = 10
+MG_PHASE_MAX_ITR = (20, 10, 10)
+MG_HT_SAMPLES = 64  # 8 steps of 8
+MG_RETRAIN_ITR = 50
 
 
 def emit(obj) -> None:
@@ -1588,6 +1630,213 @@ def phase_hypernet_train_path() -> int:
     return launches
 
 
+def sharded_encode_rank(t_launch: float, *args, mesh, **kwargs):
+    """What the rank of the sharded encode runs (``parallel.launch`` calls it
+    with ``mesh``): the first NCCL collective (the communicator's creation),
+    then ``encode_batch_sharded``; returns its result and the rank's
+    seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from coolchic_tpu_torch.parallel import encode_batch_sharded
+
+    started = time.time()
+    t0 = time.perf_counter()
+    dist.barrier(group=mesh.group)
+    torch.cuda.synchronize()
+    group_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = encode_batch_sharded(*args, mesh=mesh, **kwargs)
+    torch.cuda.synchronize()
+    return out, {"launcher_startup_s": started - t_launch, "process_group_startup_s": group_s,
+                 "rank_encode_s": time.perf_counter() - t0, "rank_device": str(mesh.device),
+                 "backend": mesh.backend, "world_size": mesh.world_size}
+
+
+def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
+    """``parallel/`` at world size 1 on NCCL (the sharded encode), the
+    trainer's ``--data_parallel``, ``encode_simpler``, ``retrain_latents`` and
+    ``detailed_eval_metrics`` (see the module docstring, item 9). Returns the
+    kernel launches of the phase, its ranks' included. Raises on any miss."""
+    import shutil
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from coolchic_tpu_torch import encode_simpler, hypernet_train, retrain_latents
+    from coolchic_tpu_torch.bitstream import decode_bitstream
+    from coolchic_tpu_torch.hypernet import NOWholeNet
+    from coolchic_tpu_torch.hypernet.inference import load_checkpoint
+    from coolchic_tpu_torch.hypernet.training import evaluate_wholenet
+    from coolchic_tpu_torch.metalearning import synthetic_batches
+    from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.parallel import launch
+    from coolchic_tpu_torch.train.encode import encode_frame_batch
+    from coolchic_tpu_torch.train.step import detailed_eval_metrics, eval_metrics
+    from coolchic_tpu_torch.utils.types import DecoderConfig
+
+    def clock() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    seen = {}
+
+    def sizes_of(step: str, before: Counter, checked) -> None:
+        """The launches of ``step`` by batch size, each held by the checks."""
+        delta = {b: n - before.get(b, 0) for b, n in ar.launches_by_batch.items()
+                 if n > before.get(b, 0)}
+        if not set(delta) <= set(checked):
+            raise AssertionError(f"{step} launched the kernel on batches of {sorted(delta)}; "
+                                 f"checked at its pyramid: {checked}")
+        seen[step] = {str(b): n for b, n in sorted(delta.items())}
+
+    root = OUT_DIR / "multi_gpu_and_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    n_images = len(MG_LMBDAS)
+    enc, reductions = cut_recipe(MG_WARMUP_MAX_ITR, MG_PHASE_MAX_ITR)
+    dec = DecoderConfig()
+    batch_cfg = dec.to_coolchic_config((IMG_H, IMG_W))
+    targets = torch.tensor(np.stack([np.round(synthetic_image(IMG_H, IMG_W, seed=b) * 255.0)
+                                     / 255.0 for b in range(n_images)]).astype(np.float32))
+    seeds = list(range(n_images))
+    emit({"phase": "multi_gpu_and_tools_path_config", "sharded_encode": {
+        "images": n_images, "img_size": [IMG_H, IMG_W], "lmbdas": list(MG_LMBDAS),
+        "world_size": 1, "backend": "nccl", "dec_cfg": vars(dec),
+        "candidates": [wp.candidates for wp in enc.recipe.warmup.phases], "reduced": reductions},
+        "data_parallel_train": {"mode": "no", "patch": [HT_PATCH, HT_PATCH], "batch": HT_BATCH,
+                                "n_samples": MG_HT_SAMPLES, "data_parallel": [0, 1]},
+        "encode_simpler": {"budget": "debug", "img_size": [IMG_H, IMG_W]},
+        "retrain_latents": {"init": "zeros", "n_itr": MG_RETRAIN_ITR, "frame": 0}})
+
+    torch.cuda.synchronize()
+    ar.launch_count = 0
+    ar.launches_by_batch.clear()
+
+    # --- the sharded encode, one rank on NCCL, and its reference here, both
+    # with cuDNN's deterministic algorithms (the rank takes this process's
+    # switches). The replicate padding's backward still sums with atomics,
+    # so the two runs agree within a tolerance, not bit for bit.
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = Counter(ar.launches_by_batch)
+        t0 = clock()
+        (res, infos), rank = launch(sharded_encode_rank, 1, "cuda", time.time(), targets,
+                                    MG_LMBDAS, batch_cfg, enc.recipe, seeds,
+                                    with_quant_info=True)
+        sharded_s = clock() - t0
+        sharded_launches = ar.launch_count
+        sizes_of("sharded_encode", before, BATCH_SIZES)
+        before = Counter(ar.launches_by_batch)
+        t0 = clock()
+        want, want_infos = encode_frame_batch(targets.cuda(), MG_LMBDAS, batch_cfg, enc.recipe,
+                                              seeds, with_quant_info=True)
+        reference_s = clock() - t0
+        sizes_of("sharded_encode_reference", before, BATCH_SIZES)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    emit({"phase": "multi_gpu_launcher_startup", "seconds": rank["launcher_startup_s"]})
+    emit({"phase": "multi_gpu_process_group_startup", "seconds": rank["process_group_startup_s"],
+          "backend": rank["backend"], "world_size": rank["world_size"]})
+    emit({"phase": "multi_gpu_sharded_encode_seconds", "sharded_s": sharded_s,
+          "rank_encode_s": rank["rank_encode_s"], "reference_encode_frame_batch_s": reference_s})
+    flat = [-10.0 * math.log10(float(np.mean((t - t.mean(axis=(1, 2), keepdims=True)) ** 2)))
+            for t in targets.numpy()]
+    diff = {"psnr_db": float((res.psnr_db - want.psnr_db).abs().max()),
+            "rate_latent_bpp_rel": float(((res.rate_latent_bpp - want.rate_latent_bpp).abs()
+                                          / want.rate_latent_bpp).max()),
+            "loss_rel": float(((res.loss - want.loss).abs() / want.loss).max())}
+    if not (diff["psnr_db"] <= 0.1 and diff["rate_latent_bpp_rel"] <= 0.05
+            and diff["loss_rel"] <= 0.02):
+        raise AssertionError(f"the sharded encode differs from encode_frame_batch: {diff}")
+    if rank["rank_device"] != "cuda:0" or rank["backend"] != "nccl":
+        raise AssertionError(f"sharded encode: {len(infos)} infos, rank {rank}")
+    for b in range(n_images):
+        if not (math.isfinite(res.loss[b]) and res.psnr_db[b] > flat[b]):
+            raise AssertionError(f"sharded image {b}: PSNR {res.psnr_db[b]} vs flat {flat[b]}")
+    sharded = {"psnr_db": res.psnr_db.tolist(), "rate_latent_bpp": res.rate_latent_bpp.tolist(),
+               "reference_psnr_db": want.psnr_db.tolist(), "max_diff": diff,
+               "infos_equal": infos == want_infos, "n_train_steps": res.stats.n_train_steps,
+               "image_steps_per_s_rank": res.stats.n_train_steps / rank["rank_encode_s"],
+               "launches_rank": sharded_launches}
+
+    # --- the trainer with --data_parallel 1 against 0.
+    common = ["--synthetic", "--device", "cuda", "--disable_wandb", "--mode", "no",
+              "--patch_size", str(HT_PATCH), "--batch_size", str(HT_BATCH), "--lmbda", "1e-3",
+              "--n_samples", str(MG_HT_SAMPLES)]
+    eval_imgs = torch.tensor(next(synthetic_batches(HT_BATCH, (HT_PATCH, HT_PATCH), seed=999)),
+                             device="cuda")
+    net = NOWholeNet(DecoderConfig().to_coolchic_config((HT_PATCH, HT_PATCH)))
+    dp = {}
+    for n in (0, 1):
+        wd = root / f"hnet_dp{n}"
+        before = Counter(ar.launches_by_batch)
+        t0 = clock()
+        if hypernet_train.main(common + ["--workdir", str(wd), "--data_parallel", str(n)]) != 0:
+            raise AssertionError(f"hypernet_train --data_parallel {n} returned non-zero")
+        wall = clock() - t0
+        sizes_of(f"hypernet_train_dp{n}", before, HT_BATCH_SIZES)
+        best = load_checkpoint(wd / f"samples_{MG_HT_SAMPLES}.pkl", device="cuda")
+        m = {k: float(v) for k, v in evaluate_wholenet(net, best, eval_imgs, 1e-3).items()}
+        dp[n] = {"wall_s": wall, "samples_per_s": MG_HT_SAMPLES / wall, "eval": m,
+                 "checkpoints": sorted(p.name for p in wd.iterdir())}
+    rel = abs(dp[1]["eval"]["loss"] - dp[0]["eval"]["loss"]) / dp[0]["eval"]["loss"]
+    if not rel <= 1e-4 or dp[1]["checkpoints"] != dp[0]["checkpoints"]:
+        raise AssertionError(f"--data_parallel 1 vs 0: eval loss {rel} apart, {dp}")
+
+    # --- encode_simpler --budget debug on the main path's image.
+    cool = root / "simpler_512x768.cool"
+    before = Counter(ar.launches_by_batch)
+    t0 = clock()
+    simple = encode_simpler.encode(encode_simpler._build_argparser().parse_args(
+        ["-i", str(OUT_DIR / "synthetic_512x768.ppm"), "-o", str(cool), "--budget", "debug",
+         "--device", "cuda"]))
+    simple["seconds"] = clock() - t0
+    sizes_of("encode_simpler", before, BATCH_SIZES)
+    _, info = decode_bitstream(cool.read_bytes(), integer_pipeline=True, full_info=True)
+    simple["real_latent_bpp"] = 8 * sum(info["frame_header"].n_bytes_per_latent) / (IMG_H * IMG_W)
+    est = simple["rate_latent_bpp"]
+    if not abs(simple["psnr_db"] - simple["psnr_db_estimate"]) < 0.1 or (
+            est > 0.05 and abs(simple["real_latent_bpp"] - est) / est >= 0.2):
+        raise AssertionError(f"encode_simpler's stream against its estimate: {simple}")
+
+    # --- retrain_latents on frame 0 of the video path's checkpoint (a copy).
+    ckpt = root / "video_encoder.pkl"
+    shutil.copy(OUT_DIR / "video" / "video_encoder.pkl", ckpt)
+    before = Counter(ar.launches_by_batch)
+    t0 = clock()
+    retrained = retrain_latents.retrain(retrain_latents._build_argparser().parse_args(
+        ["--checkpoint", str(ckpt), "--input",
+         str(OUT_DIR / f"synthetic_{VIDEO_W}x{VIDEO_H}_420_8b.yuv"), "--init", "zeros",
+         "--n_itr", str(MG_RETRAIN_ITR), "--device", "cuda"]))
+    retrained["seconds"] = clock() - t0
+    sizes_of("retrain_latents", before, VIDEO_BATCH_SIZES)
+    if not retrained["loss_after"] < retrained["loss_before"]:
+        raise AssertionError(f"retrain_latents did not lower the loss: {retrained}")
+
+    # --- detailed_eval_metrics of the main path's trained decoder.
+    before = Counter(ar.launches_by_batch)
+    target = torch.tensor(img, device="cuda")
+    detailed = {k: v.item() for k, v in detailed_eval_metrics(
+        run.result.params, cfg, target, 1e-3).items()}
+    sizes_of("detailed_eval_metrics", before, BATCH_SIZES)
+    m = eval_metrics(run.result.params, cfg, target, 1e-3)
+    per_grid = sum(detailed[f"latent_{i}_bpp"] for i in range(cfg.latent_n_grids))
+    for k in ("loss", "total_rate_bpp"):
+        if abs(detailed[k] - getattr(m, k).item()) > 1e-6 * abs(getattr(m, k).item()):
+            raise AssertionError(f"detailed_eval_metrics {k} {detailed[k]} vs {getattr(m, k)}")
+    if abs(per_grid - detailed["rate_latent_bpp"]) > 1e-5 * detailed["rate_latent_bpp"]:
+        raise AssertionError(f"per-grid rates sum to {per_grid}, not {detailed}")
+    launches = ar.launch_count
+
+    emit({"phase": "multi_gpu_and_tools_path", "launches": launches,
+          "arm_rate_launches_by_step_and_batch": seen, "sharded_encode": sharded,
+          "data_parallel_train": dp, "encode_simpler": simple, "retrain_latents": retrained,
+          "detailed_eval_metrics": detailed})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1619,18 +1868,21 @@ def main() -> int:
     video_launches = timed("video_path", phase_video_path)
     hypernet_launches = timed("hypernet_path", phase_hypernet_path, run.result.params)
     hypernet_train_launches = timed("hypernet_train_path", phase_hypernet_train_path)
+    tools_launches = timed("multi_gpu_and_tools_path", phase_multi_gpu_and_tools_path, run, cfg,
+                           img)
     emit({"kernels": [{
         "name": "arm_rate",
         "route": "cuda",
         "source": "coolchic_tpu_torch/csrc/arm_rate.cu",
         "replaces": "coolchic_tpu/ops/pallas_arm.py:86",
         "launches": (launches + batch_launches + video_launches + hypernet_launches
-                     + hypernet_train_launches),
+                     + hypernet_train_launches + tools_launches),
         "launches_main_path": launches,
         "launches_batch_path": batch_launches,
         "launches_video_path": video_launches,
         "launches_hypernet_path": hypernet_launches,
         "launches_hypernet_train_path": hypernet_train_launches,
+        "launches_multi_gpu_and_tools_path": tools_launches,
         "max_abs_err": pyramid["max_abs_err"],
         "ms": pyramid["ms"],
         "plain_ms": pyramid["plain_ms"],

@@ -55,6 +55,8 @@ def _build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dec_cfg", type=Path, default=None, help="DecoderConfig YAML")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--hls_sig_blksize", type=int, default=16)
+    p.add_argument("--disable_wandb", action="store_true",
+                   help="turn off experiment logging (wandb, when installed)")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -212,6 +214,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     from dataclasses import replace
 
+    from coolchic_tpu_torch.utils import logging as cclog
     from coolchic_tpu_torch.utils.types import DecoderConfig, EncoderConfig, UserConfig
 
     if args.config is not None:
@@ -237,7 +240,13 @@ def main(argv=None) -> int:
                 run_cfg,
                 workdir=None if wd is None else wd / f"run_{i:03d}",
                 output=None if out is None else out.with_name(f"{out.stem}_{i:03d}{out.suffix}"))
+        # One logging run per encode run, as the JAX CLI opens.
+        cclog.init(config={"input": str(run_cfg.input), "lmbda": run_cfg.lmbda,
+                           "recipe": run_cfg.enc_cfg.std_recipe_name},
+                   disable=args.disable_wandb)
         row = encode_one_run(run_cfg, args.seed, args.device, args.hls_sig_blksize).row
+        cclog.log(row, step=i)
+        cclog.finish()
         estimate = f" (estimate {row['psnr_db_estimate']:.3f})" if "psnr_db_estimate" in row else ""
         print(
             f"{row['seq_name']}: lmbda={row['lmbda']:.1e} psnr={row['psnr_db']:.3f} dB{estimate} "

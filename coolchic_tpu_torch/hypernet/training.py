@@ -20,6 +20,16 @@ the k-th call; between those calls the parameters do not move.
 
 The state's tensors are updated in place: the best state is a snapshot, and
 the patience reload copies it back.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``) keeps the semantics of
+the one-device step, as JAX's batch-sharded recipe does: every rank reads the
+same batch stream and takes its rows; the noise of step i is the
+one-device draw for the whole batch, sliced to the rank's rows; a rank's loss
+is its rows' summed loss over the whole batch's size, and the gradients are
+all-reduced (summed) in one flat bucket before the freeze mask, the clip and
+Adam, which every rank then applies identically. Nothing else needs syncing:
+the hypernet has no batch statistics (GroupNorm, and a LayerNorm per
+position).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import Any, Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from coolchic_tpu_torch.hypernet.inference import save_checkpoint
 from coolchic_tpu_torch.hypernet.wholenet import WholeNetState
@@ -54,8 +65,16 @@ def snapshot(state: WholeNetState) -> WholeNetState:
     return WholeNetState(tree_clone(state.hypernet), tree_clone(state.decoder))
 
 
-def _batch_loss(net, state, imgs, lmbda, q_noise, q_type, temp, noise, generator=None):
-    """The mean over the batch of each image's RD loss."""
+def _batch_loss(net, state, imgs, lmbda, q_noise, q_type, temp, noise, generator=None,
+                mesh=None):
+    """The mean over the batch of each image's RD loss. With a mesh,
+    ``imgs`` are this rank's rows: the sum of their losses over the whole
+    batch's size, with the whole batch's noise sliced to the rows."""
+    raw_noise, n_global = None, imgs.shape[0]
+    if mesh is not None:
+        n_global = imgs.shape[0] * mesh.world_size
+        raw_noise = _rows_of_global_noise(net.cfg, q_noise, generator, n_global, mesh,
+                                          imgs.device)
     decoded, rate = net.forward(
         state,
         imgs,
@@ -64,9 +83,23 @@ def _batch_loss(net, state, imgs, lmbda, q_noise, q_type, temp, noise, generator
         soft_round_temperature=temp,
         noise_parameter=noise,
         training=True,
+        noise=raw_noise,
         generator=generator,
     )
-    return torch.mean(loss_function(decoded, rate, imgs, lmbda).loss)
+    loss = loss_function(decoded, rate, imgs, lmbda).loss
+    return torch.mean(loss) if mesh is None else torch.sum(loss) / n_global
+
+
+def _rows_of_global_noise(cfg, q_noise, generator, n_global, mesh, device):
+    """The raw draw that one device makes for a batch of ``n_global`` (one
+    per latent grid, in grid order, ``models/quantizer.py::draw_noise``),
+    sliced to this rank's rows; None when the quantizer draws no noise."""
+    draw = {"gaussian": torch.randn, "kumaraswamy": torch.rand}.get(q_noise)
+    if draw is None:
+        return None
+    rows = mesh.rows(n_global)
+    return [draw((n_global, *shape), generator=generator, device=device)[rows]
+            for shape in cfg.latent_shapes]
 
 
 def _bias_correction(beta: float, count: int) -> float:
@@ -138,6 +171,7 @@ def make_wholenet_train_step(
     phase: TrainerPhase,
     freeze_backbone: bool = False,
     grad_accumulation_steps: int = 1,
+    mesh=None,
 ):
     """Build (optimizer, step) for one training phase.
 
@@ -147,7 +181,10 @@ def make_wholenet_train_step(
     ``generator``. With ``freeze_backbone`` the gradients of the hypernet's
     ``ResNet_*`` tensors are zeros (they are not computed). With
     ``grad_accumulation_steps = k > 1`` the parameters move on every k-th
-    call, by the mean gradient of the last k micro-batches."""
+    call, by the mean gradient of the last k micro-batches. With a mesh,
+    ``imgs`` are this rank's rows of the batch, the loss is the rank's share
+    of the batch mean, and the gradients are summed over the ranks before
+    the update (see the module's docstring)."""
     tx = WholeNetOptimizer(grad_accumulation_steps)
 
     def step(state: WholeNetState, opt_state: WholeNetOptState, imgs, lmbda, generator,
@@ -160,11 +197,17 @@ def make_wholenet_train_step(
             t.requires_grad_(True)
         try:
             loss = _batch_loss(net, state, imgs, lmbda, phase.quantizer_noise_type,
-                               phase.quantizer_type, temp, noise, generator)
-            computed = iter(torch.autograd.grad(loss, trained))
+                               phase.quantizer_type, temp, noise, generator, mesh)
+            computed = torch.autograd.grad(loss, trained)
         finally:
             for t in trained:
                 t.requires_grad_(False)
+        if mesh is not None:
+            bucket = torch.cat([g.reshape(-1) for g in computed])
+            dist.all_reduce(bucket, group=mesh.group)
+            computed = [b.view_as(g) for b, g in zip(bucket.split([g.numel() for g in computed]),
+                                                     computed)]
+        computed = iter(computed)
         grads = [torch.zeros_like(t) if f else next(computed) for t, f in zip(leaves, frozen)]
         tx.update_(leaves, grads, opt_state, lr)
         return state, opt_state, loss.detach()
@@ -173,16 +216,22 @@ def make_wholenet_train_step(
 
 
 @torch.no_grad()
-def evaluate_wholenet(net, state: WholeNetState, imgs: torch.Tensor, lmbda) -> Dict:
+def evaluate_wholenet(net, state: WholeNetState, imgs: torch.Tensor, lmbda, mesh=None) -> Dict:
     """Eval-mode metrics over a batch (one forward of its B decoders: one
-    launch of the ARM-rate kernel on the card), each a 0-d tensor."""
+    launch of the ARM-rate kernel on the card), each a 0-d tensor. With a
+    mesh, ``imgs`` are this rank's rows of the eval batch and the means are
+    over every rank's rows (an all-reduce of the sums), the same on every
+    rank."""
     decoded, rate = net.forward(state, imgs, training=False)
     out = loss_function(decoded, rate, imgs, lmbda)
-    return {
-        "loss": torch.mean(out.loss),
-        "psnr_db": torch.mean(out.psnr_db),
-        "rate_latent_bpp": torch.mean(out.rate_latent_bpp),
-    }
+    metrics = torch.stack([out.loss, out.psnr_db, out.rate_latent_bpp])
+    if mesh is None:
+        means = metrics.mean(dim=1)
+    else:
+        sums = metrics.sum(dim=1)
+        dist.all_reduce(sums, group=mesh.group)
+        means = sums / (imgs.shape[0] * mesh.world_size)
+    return dict(zip(("loss", "psnr_db", "rate_latent_bpp"), means))
 
 
 class HypernetTrainLog(NamedTuple):
@@ -211,6 +260,7 @@ def train_wholenet(
     checkpointing_freq_samples: Optional[int] = None,
     grad_accumulation_steps: int = 1,
     samples_offset: int = 0,
+    mesh=None,
 ):
     """Train for ``n_samples`` images with periodic evaluation and the
     patience reload of the best state, on the device of ``state`` (which is
@@ -234,6 +284,11 @@ def train_wholenet(
             on the global sample clock. The Adam moments restart at zero on
             resume (a checkpoint holds the state only, as in JAX), so expect
             a brief rise of the loss at the resume boundary.
+        mesh: data parallelism over the ranks of ``parallel.launch`` (see the
+            module's docstring): ``batch_size`` and the eval batch must be
+            multiples of the world size; rank 0's state is broadcast first,
+            and rank 0 alone writes checkpoints (the others wait for it) and
+            logs. Every rank returns the same best state and logs.
 
     Returns:
         (best state, list of HypernetTrainLog).
@@ -241,6 +296,13 @@ def train_wholenet(
     device = state_leaves(state)[0].device
     state = snapshot(state)
     eval_imgs = torch.as_tensor(eval_imgs, dtype=torch.float32, device=device)
+    rows, lead = slice(None), True
+    if mesh is not None:
+        rows, lead = mesh.rows(batch_size), mesh.rank == 0
+        eval_imgs = eval_imgs[mesh.rows(eval_imgs.shape[0])]
+        for t in state_leaves(state):
+            dist.broadcast(t, src=0, group=mesh.group)
+    verbose = verbose and lead
     n_steps = max((n_samples - samples_offset) // batch_size, 1)
     steps_done = samples_offset // batch_size
     for _ in range(steps_done):
@@ -250,7 +312,8 @@ def train_wholenet(
 
     frozen = unfreeze_backbone_samples > 0
     tx, step = make_wholenet_train_step(
-        net, phase, freeze_backbone=frozen, grad_accumulation_steps=grad_accumulation_steps)
+        net, phase, freeze_backbone=frozen, grad_accumulation_steps=grad_accumulation_steps,
+        mesh=mesh)
     opt_state = tx.init(state)
 
     best_state = snapshot(state)
@@ -267,7 +330,7 @@ def train_wholenet(
             frozen = False
             _, step = make_wholenet_train_step(
                 net, phase, freeze_backbone=False,
-                grad_accumulation_steps=grad_accumulation_steps)
+                grad_accumulation_steps=grad_accumulation_steps, mesh=mesh)
 
         frac = samples_seen / n_samples
         lr = phase.lr * 0.5 * (1 + math.cos(math.pi * frac)) if phase.schedule_lr else phase.lr
@@ -276,7 +339,7 @@ def train_wholenet(
         noise = phase.noise_parameter[0] + frac * (
             phase.noise_parameter[1] - phase.noise_parameter[0])
 
-        imgs = torch.as_tensor(next(data_iter), dtype=torch.float32, device=device)
+        imgs = torch.as_tensor(next(data_iter)[rows], dtype=torch.float32, device=device)
         generator = make_generator(device, seed, steps_done + i)
         state, opt_state, loss = step(state, opt_state, imgs, lmbda, generator, lr, temp, noise)
 
@@ -284,10 +347,16 @@ def train_wholenet(
             ckpt_steps = max(checkpointing_freq_samples // batch_size, 1)
             if (i + 1) % ckpt_steps == 0:
                 n_seen = samples_seen + batch_size
-                save_checkpoint(state, Path(workdir) / f"samples_{n_seen}.pkl", n_seen)
+                if lead:
+                    save_checkpoint(state, Path(workdir) / f"samples_{n_seen}.pkl", n_seen)
+                if mesh is not None:
+                    dist.barrier(group=mesh.group)
 
         if (i + 1) % freq_valid_steps == 0 or i + 1 == n_steps:
-            m = {k: float(v) for k, v in evaluate_wholenet(net, state, eval_imgs, lmbda).items()}
+            if mesh is not None:  # the batch's loss from the ranks' shares
+                dist.all_reduce(loss, group=mesh.group)
+            m = {k: float(v)
+                 for k, v in evaluate_wholenet(net, state, eval_imgs, lmbda, mesh).items()}
             eval_loss = m["loss"]
             if eval_loss < best_loss:
                 best_loss = eval_loss
@@ -305,8 +374,8 @@ def train_wholenet(
                     eval_rate_bpp=m["rate_latent_bpp"],
                 )
             )
-            cclog.log(
-                {
+            if lead:
+                cclog.log({
                     "samples_seen": samples_seen + batch_size,
                     "train_loss": float(loss),
                     "eval_loss": eval_loss,
@@ -315,9 +384,7 @@ def train_wholenet(
                     "lr": float(lr),
                     "softround_temperature": float(temp),
                     "noise_parameter": float(noise),
-                },
-                step=samples_seen + batch_size,
-            )
+                }, step=samples_seen + batch_size)
             if verbose:
                 print(
                     f"samples {samples_seen + batch_size:>8} | "

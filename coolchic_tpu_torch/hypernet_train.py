@@ -9,7 +9,11 @@ Usage:
 
 Runs on the GPU unless given ``--device cpu``. Checkpoints are
 ``<workdir>/samples_N.pkl`` in the JAX package's format; the last one,
-``samples_{n_samples}.pkl``, holds the best state.
+``samples_{n_samples}.pkl``, holds the best state. ``--data_parallel N``
+trains on N ranks (``parallel.launch``: one process per GPU over NCCL, or N
+CPU processes over gloo with ``--device cpu``), each on its rows of every
+batch, with the semantics of the one-device run
+(``hypernet/training.py``); rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -42,8 +46,7 @@ def main(argv=None) -> int:
                    help="gradient accumulation micro-batches")
     p.add_argument(
         "--data_parallel", type=int, default=0,
-        help="shard batches over this many devices (0 = single device; only 0 "
-        "is supported until the multi-GPU port)",
+        help="shard batches over this many devices (0 = single device)",
     )
     p.add_argument(
         "--checkpointing_freq", type=int, default=None,
@@ -51,11 +54,22 @@ def main(argv=None) -> int:
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel > 0 needs data parallelism over several GPUs, which the "
-            "multi-GPU slice of the port adds; run with --data_parallel 0")
+    if not args.data_parallel:
+        return _train(args)
 
+    from coolchic_tpu_torch.parallel import launch
+    from coolchic_tpu_torch.utils.types import HypernetRunConfig, load_config
+
+    batch_size = args.batch_size or (
+        load_config(args.config, HypernetRunConfig).batch_size if args.config else 8)
+    if batch_size % args.data_parallel:
+        raise ValueError(f"--data_parallel {args.data_parallel} does not divide the batch "
+                         f"size {batch_size}")
+    return launch(_train, args.data_parallel, args.device, args)
+
+
+def _train(args: argparse.Namespace, mesh=None) -> int:
+    """The trainer's run on one device, or on this rank's of ``mesh``."""
     import numpy as np
     import torch
 
@@ -75,7 +89,8 @@ def main(argv=None) -> int:
         DecoderConfig, HypernetRunConfig, load_config, resolve_device,
     )
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
     if args.config is not None:
         run_cfg = load_config(args.config, HypernetRunConfig)
         patch = run_cfg.hypernet_cfg.patch_size
@@ -129,14 +144,17 @@ def main(argv=None) -> int:
         if args.init_from is not None and not args.resume:
             no_state = load_checkpoint(args.init_from, device=device)
             state = net.load_from_no_coolchic(no_state, state)
-            print(f"initialized from NO checkpoint {args.init_from}")
+            if lead:
+                print(f"initialized from NO checkpoint {args.init_from}")
 
     samples_offset = 0
     if args.resume:
         state, samples_offset = load_checkpoint_meta(Path(workdir), device=device)
-        print(f"resumed from {workdir} at {samples_offset} samples")
+        if lead:
+            print(f"resumed from {workdir} at {samples_offset} samples")
         if samples_offset >= n_samples:
-            print("nothing left to train")
+            if lead:
+                print("nothing left to train")
             return 0
 
     if args.synthetic or args.data_dir is None:
@@ -159,7 +177,7 @@ def main(argv=None) -> int:
             "lmbda": lmbda,
             "backbone": backbone,
         },
-        disable=args.disable_wandb,
+        disable=args.disable_wandb or not lead,
     )
     best, _ = train_wholenet(
         net,
@@ -176,10 +194,12 @@ def main(argv=None) -> int:
         checkpointing_freq_samples=args.checkpointing_freq,
         grad_accumulation_steps=args.grad_accum,
         samples_offset=samples_offset,
+        mesh=mesh,
     )
     cclog.finish()
-    save_checkpoint(best, workdir / f"samples_{n_samples}.pkl", n_samples)
-    print(f"saved {workdir / f'samples_{n_samples}.pkl'}")
+    if lead:
+        save_checkpoint(best, workdir / f"samples_{n_samples}.pkl", n_samples)
+        print(f"saved {workdir / f'samples_{n_samples}.pkl'}")
     return 0
 
 

@@ -140,6 +140,24 @@ def convert_420_to_444(yuv420: Dict[str, np.ndarray]) -> np.ndarray:
     return np.concatenate([yuv420["y"], u, v], axis=0)
 
 
+def rgb2yuv(rgb: np.ndarray) -> np.ndarray:
+    """RGB -> YUV 4:4:4, values in [0, 255] (reference: format/yuv.py:177-202)."""
+    r, g, b = rgb[0:1], rgb[1:2], rgb[2:3]
+    y = np.round(0.299 * r + 0.587 * g + 0.114 * b)
+    u = np.round(-0.1687 * r - 0.3313 * g + 0.5 * b + 128)
+    v = np.round(0.5 * r - 0.4187 * g - 0.0813 * b + 128)
+    return np.concatenate([y, u, v], axis=0)
+
+
+def yuv2rgb(yuv: np.ndarray) -> np.ndarray:
+    """YUV 4:4:4 -> RGB, values in [0, 255] (reference: format/yuv.py:205-236)."""
+    y, u, v = yuv[0:1], yuv[1:2], yuv[2:3]
+    r = y - 0.000007154783816076815 * u + 1.4019975662231445 * v - 179.45477266423404
+    g = y - 0.3441331386566162 * u - 0.7141380310058594 * v + 135.45870971679688
+    b = y + 1.7720025777816772 * u + 0.00001542569043522235 * v - 226.8183044444304
+    return np.concatenate([r, g, b], axis=0)
+
+
 def load_frame_data_from_file(file_path: str, idx_display_order: int = 0) -> FrameData:
     """Load a frame from .png / .ppm, or frame ``idx_display_order`` of a .yuv
     file: 8 bit with an "_8b" tag in the name, else 10; 4:2:0 with a "420"

@@ -242,3 +242,41 @@ def frame_forward(
             decoded = levels.to(raw.dtype) / torch.full((), max_dynamic, device=raw.device)
         decoded = decoded if batched else decoded[0]
     return clip_like_jax(decoded, 0.0, 1.0), rate, extras
+
+
+def macs_per_pixel(cfg: CoolChicConfig) -> Dict[str, float]:
+    """Analytic multiply-accumulate count per decoded pixel of the eval
+    forward, as the decoder runs it (separable 1-D upsampling passes)."""
+    h, w = cfg.img_size
+    n_pix = h * w
+    shapes = cfg.latent_shapes
+
+    # ARM: per latent, n_hidden residual dim x dim products and the 2-wide head.
+    n_latents = sum(c * hh * ww for c, hh, ww in shapes)
+    arm_macs = n_latents * (cfg.n_hidden_layers_arm * cfg.dim_arm * cfg.dim_arm + cfg.dim_arm * 2)
+
+    # Upsampling: each x2 step runs two polyphase 1-D passes of ups_k / 2
+    # taps over every output pixel, plus the pre-concat filter's two 1-D
+    # passes over the grid it joins.
+    ups_macs = 0
+    acc_px = shapes[-1][0] * shapes[-1][1] * shapes[-1][2]
+    for i in range(len(shapes) - 2, -1, -1):
+        c_i, h_i, w_i = shapes[i]
+        up_px = 4 * acc_px
+        ups_macs += up_px * cfg.ups_k_size
+        ups_macs += (c_i * h_i * w_i) * 2 * cfg.ups_preconcat_k_size
+        acc_px = up_px + c_i * h_i * w_i  # an odd size's crop is not subtracted
+    # Synthesis: dense convolutions at full resolution.
+    syn_macs = 0
+    in_ft = cfg.total_latent_channels
+    for out_ft, k_size, _res, _relu in cfg.parsed_synthesis_layers():
+        syn_macs += n_pix * in_ft * out_ft * k_size * k_size
+        in_ft = out_ft
+
+    total = arm_macs + ups_macs + syn_macs
+    return {
+        "arm": arm_macs / n_pix,
+        "upsampling": ups_macs / n_pix,
+        "synthesis": syn_macs / n_pix,
+        "total": total / n_pix,
+    }

@@ -9,9 +9,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, fields, replace
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
-PRESET_CFG_DIR = Path(__file__).resolve().parents[2] / "preset_cfg"
+from coolchic_tpu_torch.utils.paths import PRESET_CFG_DIR
+
 PRESET_NAMES = ("c3x", "debug")
 
 
@@ -115,3 +116,55 @@ def load_preset(name_or_path: str, n_itr: Optional[int] = None) -> Preset:
         path = PRESET_CFG_DIR / f"{name_or_path}.yaml"
     with open(path) as f:
         return Preset.from_dict(yaml.safe_load(f)).with_first_phase_itr(n_itr)
+
+
+def preset_c3x(start_lr: float = 1e-2, n_itr_per_phase: int = 100000) -> Preset:
+    """``preset_cfg/c3x.yaml`` with the first phase's ``max_itr`` set to
+    ``n_itr_per_phase`` and ``start_lr`` as the warm-up's and the first
+    phase's learning rate (the YAML's 10,600 iterations and 1e-2 are
+    ``preset_c3x(n_itr_per_phase=10600)``)."""
+    preset = load_preset("c3x", n_itr_per_phase)
+    warmup = Warmup(tuple(replace(wp, training_phase=replace(wp.training_phase, lr=start_lr))
+                          for wp in preset.warmup.phases))
+    phases = (replace(preset.all_phases[0], lr=start_lr),) + preset.all_phases[1:]
+    return replace(preset, all_phases=phases, warmup=warmup)
+
+
+def preset_debug(start_lr: float = 1e-2, n_itr_per_phase: int = 100000) -> Preset:
+    """``preset_cfg/debug.yaml`` with ``start_lr`` as the first phase's
+    learning rate. ``n_itr_per_phase`` is not read: the debug schedule's
+    lengths are fixed, as in the JAX package."""
+    preset = load_preset("debug")
+    return replace(preset, all_phases=(replace(preset.all_phases[0], lr=start_lr),)
+                   + preset.all_phases[1:])
+
+
+def preset_measure_speed(start_lr: float = 1e-2, n_itr_per_phase: int = 100000) -> Preset:
+    """One phase of ``n_itr_per_phase`` iterations, then the quantization
+    search, after a one-candidate, one-iteration warm-up: a schedule to time
+    the encoder (reference: presets.py:435-474)."""
+    return Preset(
+        preset_name="measure_speed",
+        all_phases=(
+            TrainerPhase(
+                lr=start_lr,
+                max_itr=n_itr_per_phase,
+                patience=5000,
+                schedule_lr=True,
+                quantizer_type="softround",
+                quantizer_noise_type="gaussian",
+                softround_temperature=(0.3, 0.1),
+                noise_parameter=(0.25, 0.1),
+                quantize_model=True,
+            ),
+        ),
+        warmup=Warmup((WarmupPhase(candidates=1,
+                                   training_phase=TrainerPhase(max_itr=1, freq_valid=1)),)),
+    )
+
+
+AVAILABLE_PRESETS: Dict[str, Callable[..., Preset]] = {
+    "c3x": preset_c3x,
+    "debug": preset_debug,
+    "measure_speed": preset_measure_speed,
+}

@@ -103,6 +103,39 @@ def eval_metrics(
     )
 
 
+@torch.no_grad()
+def detailed_eval_metrics(
+    params: Params, cfg: CoolChicConfig, target: torch.Tensor, lmbda: float | torch.Tensor,
+    rate_nn_bits: float | torch.Tensor = 0.0,
+) -> Dict[str, torch.Tensor]:
+    """``eval_metrics`` from the same one eval forward (one kernel launch on
+    the card), plus each latent grid's rate in bpp (``latent_<i>_bpp``) and
+    its share of nonzero quantized latents in % (``latent_<i>_nonzero_pct``).
+    One image, or a batch: then every value is [B]."""
+    target, refs = split_target(cfg, target)
+    decoded, rate, extras = frame_forward(params, cfg, training=False, refs=refs)
+    out = loss_function(decoded, rate, target, lmbda, rate_nn_bits,
+                        frame_data_type=cfg.frame_data_type)
+    per_grid_bpp, per_grid_nonzero = {}, {}
+    start = 0
+    for i, (c, h, w) in enumerate(cfg.latent_shapes):
+        end = start + c * h * w
+        per_grid_bpp[f"latent_{i}_bpp"] = rate[..., start:end].sum(-1) / cfg.n_pixels
+        per_grid_nonzero[f"latent_{i}_nonzero_pct"] = 100.0 * (
+            extras["flat_latent"][..., start:end] != 0).float().mean(-1)
+        start = end
+    return {
+        "loss": out.loss,
+        "psnr_db": out.psnr_db,
+        "mse": out.mse,
+        "rate_latent_bpp": out.rate_latent_bpp,
+        "rate_nn_bpp": out.rate_nn_bpp,
+        "total_rate_bpp": out.total_rate_bpp,
+        **per_grid_bpp,
+        **per_grid_nonzero,
+    }
+
+
 def row_views(rows: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """A [B] tensor viewed as [B, 1, ...] against each [B, ...] tensor of
     ``like``: one value per image, broadcast over that image's row."""

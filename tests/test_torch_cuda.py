@@ -478,3 +478,68 @@ def test_evaluate_wholenet_launches_the_kernel_once(cuda):
     np.testing.assert_allclose(out["cuda"]["rate_latent_bpp"], out["cpu"]["rate_latent_bpp"],
                                rtol=1e-4)
     np.testing.assert_allclose(out["cuda"]["psnr_db"], out["cpu"]["psnr_db"], atol=0.01)
+
+
+def _small_batch(device):
+    from coolchic_tpu_torch.train.presets import Preset, TrainerPhase, Warmup, WarmupPhase
+
+    cfg = CoolChicConfig(img_size=(32, 48), n_ft_per_res=(1, 1, 1, 1), dim_arm=8,
+                         n_hidden_layers_arm=1,
+                         layers_synthesis=("8-1-linear-relu", "X-1-linear-none"))
+    phase = TrainerPhase(lr=1e-2, max_itr=6, freq_valid=3, patience=100)
+    preset = Preset("tiny", all_phases=(phase, TrainerPhase(
+        lr=1e-4, max_itr=2, freq_valid=2, quantize_model=True, quantizer_type="ste",
+        quantizer_noise_type="none")), warmup=Warmup((WarmupPhase(2, phase),)))
+    targets = torch.tensor(np.random.default_rng(0).uniform(size=(2, 3, 32, 48)).astype(
+        np.float32))
+    return cfg, preset, targets
+
+
+def test_sharded_encode_at_world_size_1_on_nccl_equals_the_batch(cuda):
+    """``launch(encode_batch_sharded, 1, "cuda", ...)`` (a rank on NCCL) against
+    ``encode_frame_batch`` in this process on the same images and seeds: the
+    same work, so the same metrics (rtol 1e-3: the backward of the
+    synthesis' replicate padding sums with atomics, in another order from
+    run to run) and the same kernel launches,
+    which ``launch`` adds to this process's count."""
+    from coolchic_tpu_torch.parallel import encode_batch_sharded, launch
+    from coolchic_tpu_torch.train.encode import encode_frame_batch
+
+    cfg, preset, targets = _small_batch(cuda)
+    count = ops.launch_count
+    res, infos = launch(encode_batch_sharded, 1, "cuda", targets, [1e-3, 4e-3], cfg, preset,
+                        [0, 1], with_quant_info=True)
+    rank_launches = ops.launch_count - count
+    count = ops.launch_count
+    want, want_infos = encode_frame_batch(targets.to(cuda), [1e-3, 4e-3], cfg, preset, [0, 1],
+                                          with_quant_info=True)
+    assert rank_launches == ops.launch_count - count > 0
+    assert len(infos) == 2
+    for k in ("loss", "psnr_db", "rate_latent_bpp"):
+        np.testing.assert_allclose(getattr(res, k).numpy(), getattr(want, k).numpy(),
+                                   rtol=1e-3)
+
+
+def test_detailed_eval_metrics_on_the_card_match_the_cpu(cuda):
+    """One eval forward, one kernel launch; the CPU's metrics (rtol 1e-4),
+    the per-grid rates within 1e-4 bpp, the nonzero shares within 1e-6
+    relative (an f32 mean, summed in another order on the card)."""
+    from coolchic_tpu_torch.train.step import detailed_eval_metrics
+
+    cfg = CoolChicConfig(img_size=(64, 96))
+    params = init_coolchic_params(torch.Generator().manual_seed(0), cfg, "cpu", "normal")
+    params["latents"] = [30.0 * t for t in params["latents"]]
+    target = torch.tensor(np.random.default_rng(1).uniform(size=(3, 64, 96)).astype(np.float32))
+    out = {}
+    for d in ("cpu", "cuda"):
+        count = ops.launch_count
+        out[d] = {k: v.item() for k, v in detailed_eval_metrics(
+            from_numpy_pytree(to_numpy_pytree(params), d), cfg, target.to(d), 1e-3).items()}
+        assert ops.launch_count == count + (d == "cuda")
+    for k, v in out["cpu"].items():
+        if k.endswith("_nonzero_pct"):
+            assert out["cuda"][k] == pytest.approx(v, rel=1e-6), k
+        elif k.endswith("_bpp") and k.startswith("latent_"):
+            assert abs(out["cuda"][k] - v) <= 1e-4, k
+        else:
+            np.testing.assert_allclose(out["cuda"][k], v, rtol=1e-4, atol=1e-6, err_msg=k)

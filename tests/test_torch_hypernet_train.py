@@ -521,8 +521,10 @@ def test_cli_no_then_delta_then_resume(tmp_path, monkeypatch, capsys):
                                                  ttraining.state_leaves(ckpt)))
     assert "resumed from" in capsys.readouterr().out
     assert (wd_delta / "samples_8.pkl").exists()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        hypernet_train.main(base + ["--data_parallel", "2"])
+    # --data_parallel runs (tests/test_torch_parallel.py); a world size that
+    # does not divide the config's batch of 2 raises before any rank starts.
+    with pytest.raises(ValueError, match="does not divide"):
+        hypernet_train.main(base + ["--data_parallel", "3"])
 
 
 # --------------------------------------------------------------------------- eval

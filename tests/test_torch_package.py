@@ -51,9 +51,14 @@ def test_importing_the_encoder_loads_no_jax():
             "coolchic_tpu_torch.utils.sanity_check, coolchic_tpu_torch.hypernet.inference, "
             "coolchic_tpu_torch.hypernet.finetune, coolchic_tpu_torch.hypernet.training, "
             "coolchic_tpu_torch.hypernet_train, coolchic_tpu_torch.eval.hypernet, "
-            "coolchic_tpu_torch.metalearning, coolchic_tpu_torch.utils.logging; "
+            "coolchic_tpu_torch.metalearning, coolchic_tpu_torch.utils.logging, "
+            "coolchic_tpu_torch.parallel, coolchic_tpu_torch.parallel.mesh, "
+            "coolchic_tpu_torch.encode_simpler, coolchic_tpu_torch.retrain_latents, "
+            "coolchic_tpu_torch.eval, coolchic_tpu_torch.eval.bd_rate, "
+            "coolchic_tpu_torch.eval.plotting, coolchic_tpu_torch.utils.console, "
+            "coolchic_tpu_torch.utils.paths; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'coolchic_tpu')]; print(bad); "
+            "('jax', 'jaxlib', 'flax', 'optax', 'coolchic_tpu', 'matplotlib')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
