@@ -16,7 +16,6 @@ latent streams).
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -37,6 +36,7 @@ from coolchic_tpu_torch.bitstream.header import (
 from coolchic_tpu_torch.models.config import CoolChicConfig
 from coolchic_tpu_torch.params import to_numpy_pytree
 from coolchic_tpu_torch.train.quantize_model import Q_STEPS
+from coolchic_tpu_torch.utils.trace import span
 
 Params = Dict[str, Any]
 _NN_ORDER = ["arm", "upsampling", "synthesis"]
@@ -182,15 +182,17 @@ def encode_frame_bitstream(
     networks (multiples of the chosen q-steps), as tensors on any device or
     as numpy arrays. ``flow_gain`` is written to the frame header (1 enables
     the decoder's motion compensation scale for P/B frames, reference:
-    ccdecapi.cpp warp flo_gain). A ``timings`` dict, when given, receives the
-    host seconds spent in the integer ARM (``armint_s``: ``context_int`` +
-    ``armint_forward``) and in the C++ entropy coder (``entropy_s``:
-    ``code_wb`` + ``code_latent_layer``).
+    ccdecapi.cpp warp flo_gain). Spans (``utils/trace.py``): ``write.armint``
+    around the integer ARM of each grid (``context_int`` +
+    ``armint_forward``), ``write.entropy`` around the C++ entropy coder of
+    each module and each grid (``code_wb``, ``code_latent_layer``). A
+    ``timings`` dict, when given, receives their host seconds summed
+    (``armint_s``, ``entropy_s``).
 
     Returns (frame bytes, decoder-matched float params, decoded latents).
     """
     params = to_numpy_pytree(params)
-    armint_s = entropy_s = 0.0
+    armint_ns = entropy_ns = 0
     q_step_index_nn = {
         m: {
             "weight": _q_step_index(m, "weight", nn_q_step[m]["weight"]),
@@ -211,23 +213,23 @@ def encode_frame_bitstream(
             params, m, q_step_index_nn[m]["weight"], q_step_index_nn[m]["bias"]
         )
         all_symbols += [w_syms, b_syms]
-        t0 = time.perf_counter()
-        cnt_w = nn_expgol_cnt[m].get("weight", -1)
-        data_w, used_w = code_wb(w_syms, -1 if cnt_w is None else int(cnt_w))
-        streams[m]["weight"] = data_w
-        scale_index_nn[m]["weight"] = used_w
-        n_bytes_nn[m]["weight"] = len(data_w)
-        if HAVE_BIAS[m]:
-            cnt_b = nn_expgol_cnt[m].get("bias", -1)
-            data_b, used_b = code_wb(b_syms, -1 if cnt_b is None else int(cnt_b))
-            streams[m]["bias"] = data_b
-            scale_index_nn[m]["bias"] = used_b
-            n_bytes_nn[m]["bias"] = len(data_b)
-        else:
-            streams[m]["bias"] = b""
-            scale_index_nn[m]["bias"] = 0
-            n_bytes_nn[m]["bias"] = 0
-        entropy_s += time.perf_counter() - t0
+        with span("write.entropy") as coded:
+            cnt_w = nn_expgol_cnt[m].get("weight", -1)
+            data_w, used_w = code_wb(w_syms, -1 if cnt_w is None else int(cnt_w))
+            streams[m]["weight"] = data_w
+            scale_index_nn[m]["weight"] = used_w
+            n_bytes_nn[m]["weight"] = len(data_w)
+            if HAVE_BIAS[m]:
+                cnt_b = nn_expgol_cnt[m].get("bias", -1)
+                data_b, used_b = code_wb(b_syms, -1 if cnt_b is None else int(cnt_b))
+                streams[m]["bias"] = data_b
+                scale_index_nn[m]["bias"] = used_b
+                n_bytes_nn[m]["bias"] = len(data_b)
+            else:
+                streams[m]["bias"] = b""
+                scale_index_nn[m]["bias"] = 0
+                n_bytes_nn[m]["bias"] = 0
+        entropy_ns += coded.ns
 
     ac_max_val_nn = int(
         np.ceil(np.abs(np.concatenate(all_symbols)).max() + 2)
@@ -261,24 +263,24 @@ def encode_frame_bitstream(
     decoded_latents: List[np.ndarray] = []
     for y in y_grids:  # y: [C_i, H_i, W_i]
         c_i, h_i, w_i = y.shape
-        t0 = time.perf_counter()
-        ctx = context_int(y, cfg.dim_arm)
-        mu_int, ls_int = armint_forward(arm_int, ctx)
-        t1 = time.perf_counter()
-        armint_s += t1 - t0
-        mu_int = mu_int.reshape(c_i, h_i, w_i)
-        ls_int = ls_int.reshape(c_i, h_i, w_i)
-        for ft in range(c_i):
-            if np.abs(y[ft]).max() == 0:
-                latent_streams.append(b"")
-                n_bytes_per_latent.append(0)
-            else:
-                data = code_latent_layer(
-                    y[ft], mu_int[ft], ls_int[ft], h_i, w_i, hls_sig_blksize
-                )
-                latent_streams.append(data)
-                n_bytes_per_latent.append(len(data))
-        entropy_s += time.perf_counter() - t1
+        with span("write.armint") as arm:
+            ctx = context_int(y, cfg.dim_arm)
+            mu_int, ls_int = armint_forward(arm_int, ctx)
+        armint_ns += arm.ns
+        with span("write.entropy") as coded:
+            mu_int = mu_int.reshape(c_i, h_i, w_i)
+            ls_int = ls_int.reshape(c_i, h_i, w_i)
+            for ft in range(c_i):
+                if np.abs(y[ft]).max() == 0:
+                    latent_streams.append(b"")
+                    n_bytes_per_latent.append(0)
+                else:
+                    data = code_latent_layer(
+                        y[ft], mu_int[ft], ls_int[ft], h_i, w_i, hls_sig_blksize
+                    )
+                    latent_streams.append(data)
+                    n_bytes_per_latent.append(len(data))
+        entropy_ns += coded.ns
         decoded_latents.append(y)
 
     # ----- Frame header + concatenation (reference: encode.py:572-620).
@@ -312,8 +314,8 @@ def encode_frame_bitstream(
     for s in latent_streams:
         frame_bytes += s
     if timings is not None:
-        timings["armint_s"] = timings.get("armint_s", 0.0) + armint_s
-        timings["entropy_s"] = timings.get("entropy_s", 0.0) + entropy_s
+        timings["armint_s"] = timings.get("armint_s", 0.0) + 1e-9 * armint_ns
+        timings["entropy_s"] = timings.get("entropy_s", 0.0) + 1e-9 * entropy_ns
     return frame_bytes, dec_params, decoded_latents
 
 

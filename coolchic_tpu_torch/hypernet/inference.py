@@ -12,7 +12,6 @@ from __future__ import annotations
 import csv
 import itertools
 import pickle
-import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -28,6 +27,7 @@ from coolchic_tpu_torch.train.loss import loss_function
 from coolchic_tpu_torch.train.quantize_model import (
     ModuleQuantInfo, _combine_nets, quantize_model_deltas, quantize_model_with_info,
 )
+from coolchic_tpu_torch.utils.trace import span
 from coolchic_tpu_torch.utils.types import resolve_device
 
 MODULE_NAMES = ("arm", "synthesis", "upsampling")
@@ -174,30 +174,34 @@ def hypernet_to_bitstream(
     The stream carries absolute weights, so after the delta search the
     decoder is quantized again through the standard module grid; the delta
     infos report the delta-domain rate (what a receiver holding the base
-    would pay). ``timings``, when given, receives the seconds of the delta
-    search (``delta_search_s``), the model quantization (``quantize_s``) and
-    the writer (``write_s``), each stopped after a synchronise.
+    would pay). Spans (``utils/trace.py``): ``oneshot.delta_search``,
+    ``oneshot.quantize`` and ``oneshot.write``, one after another.
+    ``timings``, when given, receives their seconds
+    (``delta_search_s``, ``quantize_s``, ``write_s``), the first two then
+    ending with a synchronise of the device (only then).
 
     Returns (bitstream bytes, {"delta_infos", "nn_infos"})."""
-
-    def clock() -> float:
-        if img.device.type == "cuda":
+    sync = timings is not None and img.device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize(img.device)
+    with span("oneshot.delta_search") as search:
+        lat0, qdeltas, delta_infos = quantize_image_deltas(net, state, img, lmbda)
+        params = _combine_nets(state.decoder, qdeltas)
+        # The predicted latents are in the stored (pre-gain) convention already.
+        params["latents"] = [y.detach() for y in lat0]
+        if sync:
             torch.cuda.synchronize(img.device)
-        return time.perf_counter()
-
-    t0 = clock()
-    lat0, qdeltas, delta_infos = quantize_image_deltas(net, state, img, lmbda)
-    params = _combine_nets(state.decoder, qdeltas)
-    # The predicted latents are in the stored (pre-gain) convention already.
-    params["latents"] = [y.detach() for y in lat0]
-    t1 = clock()
-    qparams, infos, _ = quantize_model_with_info(params, img, lmbda, net.cfg)
-    t2 = clock()
-    nn_q_step = {m: {"weight": i.q_step_w, "bias": i.q_step_b} for m, i in infos.items()}
-    nn_expgol = {m: {"weight": i.expgol_w, "bias": i.expgol_b} for m, i in infos.items()}
-    bs = encode_image_bitstream(qparams, net.cfg, nn_q_step, nn_expgol, bitdepth=bitdepth)
+    with span("oneshot.quantize") as quantize:
+        qparams, infos, _ = quantize_model_with_info(params, img, lmbda, net.cfg)
+        if sync:
+            torch.cuda.synchronize(img.device)
+    with span("oneshot.write") as write:
+        nn_q_step = {m: {"weight": i.q_step_w, "bias": i.q_step_b} for m, i in infos.items()}
+        nn_expgol = {m: {"weight": i.expgol_w, "bias": i.expgol_b} for m, i in infos.items()}
+        bs = encode_image_bitstream(qparams, net.cfg, nn_q_step, nn_expgol, bitdepth=bitdepth)
     if timings is not None:
-        timings.update(delta_search_s=t1 - t0, quantize_s=t2 - t1, write_s=clock() - t2)
+        timings.update(delta_search_s=1e-9 * search.ns, quantize_s=1e-9 * quantize.ns,
+                       write_s=1e-9 * write.ns)
     return bs, {"delta_infos": delta_infos, "nn_infos": infos}
 
 

@@ -50,6 +50,7 @@ from coolchic_tpu_torch.train.loss import loss_function
 from coolchic_tpu_torch.train.presets import TrainerPhase
 from coolchic_tpu_torch.train.step import ADAM_B1, ADAM_B2, ADAM_EPS, make_generator
 from coolchic_tpu_torch.utils import logging as cclog
+from coolchic_tpu_torch.utils.trace import span
 
 GRAD_CLIP_NORM = 1.0
 
@@ -290,108 +291,140 @@ def train_wholenet(
             and rank 0 alone writes checkpoints (the others wait for it) and
             logs. Every rank returns the same best state and logs.
 
+    Spans (``utils/trace.py``): ``train`` (attrs ``n_samples``,
+    ``batch_size``) around the call; inside it, per step, ``train.data``
+    around ``next(data_iter)``, ``train.h2d`` around the batch's copy to the
+    device (from pageable memory, so it waits for the steps enqueued before
+    it), ``train.step`` around the step's enqueue; ``train.checkpoint``
+    around each checkpoint, and ``train.validate`` around each validation
+    (the evaluation, its reads, the snapshot or the reload). Each
+    validation's ``cclog.log`` record also carries the host ms per step of
+    ``train.data``, ``train.h2d`` and ``train.step`` since the previous one
+    (``train.data_ms``, ``train.h2d_ms``, ``train.step_ms``), the host ms of
+    the checkpoints since then (``train.checkpoint_ms``, 0 without) and of
+    the validation itself (``train.validate_ms``).
+
     Returns:
         (best state, list of HypernetTrainLog).
     """
-    device = state_leaves(state)[0].device
-    state = snapshot(state)
-    eval_imgs = torch.as_tensor(eval_imgs, dtype=torch.float32, device=device)
-    rows, lead = slice(None), True
-    if mesh is not None:
-        rows, lead = mesh.rows(batch_size), mesh.rank == 0
-        eval_imgs = eval_imgs[mesh.rows(eval_imgs.shape[0])]
-        for t in state_leaves(state):
-            dist.broadcast(t, src=0, group=mesh.group)
-    verbose = verbose and lead
-    n_steps = max((n_samples - samples_offset) // batch_size, 1)
-    steps_done = samples_offset // batch_size
-    for _ in range(steps_done):
-        next(data_iter)
-    freq_valid_steps = max(freq_valid_samples // batch_size, 1)
-    patience_steps = max(patience_samples // batch_size, 1) if patience_samples else None
+    with span("train", n_samples=n_samples, batch_size=batch_size) as root:
+        device = state_leaves(state)[0].device
+        state = snapshot(state)
+        eval_imgs = torch.as_tensor(eval_imgs, dtype=torch.float32, device=device)
+        rows, lead = slice(None), True
+        if mesh is not None:
+            rows, lead = mesh.rows(batch_size), mesh.rank == 0
+            eval_imgs = eval_imgs[mesh.rows(eval_imgs.shape[0])]
+            for t in state_leaves(state):
+                dist.broadcast(t, src=0, group=mesh.group)
+        verbose = verbose and lead
+        n_steps = max((n_samples - samples_offset) // batch_size, 1)
+        steps_done = samples_offset // batch_size
+        for _ in range(steps_done):
+            next(data_iter)
+        freq_valid_steps = max(freq_valid_samples // batch_size, 1)
+        patience_steps = max(patience_samples // batch_size, 1) if patience_samples else None
 
-    frozen = unfreeze_backbone_samples > 0
-    tx, step = make_wholenet_train_step(
-        net, phase, freeze_backbone=frozen, grad_accumulation_steps=grad_accumulation_steps,
-        mesh=mesh)
-    opt_state = tx.init(state)
+        frozen = unfreeze_backbone_samples > 0
+        tx, step = make_wholenet_train_step(
+            net, phase, freeze_backbone=frozen, grad_accumulation_steps=grad_accumulation_steps,
+            mesh=mesh)
+        opt_state = tx.init(state)
 
-    best_state = snapshot(state)
-    best_loss = float("inf")
-    logs = []
-    step_record = 0
-    t0 = time.time()
+        best_state = snapshot(state)
+        best_loss = float("inf")
+        logs = []
+        step_record = 0
+        # Host time since the last validation: per step, and in checkpoints.
+        host_ns = dict.fromkeys(("train.data", "train.h2d", "train.step"), 0)
+        host_steps = checkpoint_ns = 0
 
-    for i in range(n_steps):
-        samples_seen = samples_offset + i * batch_size
-        # The optimizer is the same either way (freezing masks gradients),
-        # so its state carries over the unfreeze.
-        if frozen and samples_seen >= unfreeze_backbone_samples:
-            frozen = False
-            _, step = make_wholenet_train_step(
-                net, phase, freeze_backbone=False,
-                grad_accumulation_steps=grad_accumulation_steps, mesh=mesh)
+        for i in range(n_steps):
+            samples_seen = samples_offset + i * batch_size
+            # The optimizer is the same either way (freezing masks gradients),
+            # so its state carries over the unfreeze.
+            if frozen and samples_seen >= unfreeze_backbone_samples:
+                frozen = False
+                _, step = make_wholenet_train_step(
+                    net, phase, freeze_backbone=False,
+                    grad_accumulation_steps=grad_accumulation_steps, mesh=mesh)
 
-        frac = samples_seen / n_samples
-        lr = phase.lr * 0.5 * (1 + math.cos(math.pi * frac)) if phase.schedule_lr else phase.lr
-        temp = phase.softround_temperature[0] + frac * (
-            phase.softround_temperature[1] - phase.softround_temperature[0])
-        noise = phase.noise_parameter[0] + frac * (
-            phase.noise_parameter[1] - phase.noise_parameter[0])
+            frac = samples_seen / n_samples
+            lr = phase.lr * 0.5 * (1 + math.cos(math.pi * frac)) if phase.schedule_lr else phase.lr
+            temp = phase.softround_temperature[0] + frac * (
+                phase.softround_temperature[1] - phase.softround_temperature[0])
+            noise = phase.noise_parameter[0] + frac * (
+                phase.noise_parameter[1] - phase.noise_parameter[0])
 
-        imgs = torch.as_tensor(next(data_iter)[rows], dtype=torch.float32, device=device)
-        generator = make_generator(device, seed, steps_done + i)
-        state, opt_state, loss = step(state, opt_state, imgs, lmbda, generator, lr, temp, noise)
+            with span("train.data") as data_span:
+                batch = next(data_iter)[rows]
+            with span("train.h2d") as h2d_span:
+                imgs = torch.as_tensor(batch, dtype=torch.float32, device=device)
+            with span("train.step") as step_span:
+                generator = make_generator(device, seed, steps_done + i)
+                state, opt_state, loss = step(state, opt_state, imgs, lmbda, generator, lr, temp, noise)
+            for done in (data_span, h2d_span, step_span):
+                host_ns[done.name] += done.ns
+            host_steps += 1
 
-        if workdir is not None and checkpointing_freq_samples:
-            ckpt_steps = max(checkpointing_freq_samples // batch_size, 1)
-            if (i + 1) % ckpt_steps == 0:
-                n_seen = samples_seen + batch_size
+            if workdir is not None and checkpointing_freq_samples:
+                ckpt_steps = max(checkpointing_freq_samples // batch_size, 1)
+                if (i + 1) % ckpt_steps == 0:
+                    with span("train.checkpoint") as ckpt_span:
+                        n_seen = samples_seen + batch_size
+                        if lead:
+                            save_checkpoint(state, Path(workdir) / f"samples_{n_seen}.pkl", n_seen)
+                        if mesh is not None:
+                            dist.barrier(group=mesh.group)
+                    checkpoint_ns += ckpt_span.ns
+
+            if (i + 1) % freq_valid_steps == 0 or i + 1 == n_steps:
+                with span("train.validate") as validate_span:
+                    if mesh is not None:  # the batch's loss from the ranks' shares
+                        dist.all_reduce(loss, group=mesh.group)
+                    m = {k: float(v)
+                         for k, v in evaluate_wholenet(net, state, eval_imgs, lmbda, mesh).items()}
+                    train_loss = float(loss)
+                    eval_loss = m["loss"]
+                    if eval_loss < best_loss:
+                        best_loss = eval_loss
+                        best_state = snapshot(state)
+                        step_record = i
+                    elif patience_steps and i - step_record > patience_steps:
+                        torch._foreach_copy_(state_leaves(state), state_leaves(best_state))
+                        step_record = i
+                logs.append(
+                    HypernetTrainLog(
+                        samples_seen=samples_seen + batch_size,
+                        loss=train_loss,
+                        eval_loss=eval_loss,
+                        eval_psnr_db=m["psnr_db"],
+                        eval_rate_bpp=m["rate_latent_bpp"],
+                    )
+                )
                 if lead:
-                    save_checkpoint(state, Path(workdir) / f"samples_{n_seen}.pkl", n_seen)
-                if mesh is not None:
-                    dist.barrier(group=mesh.group)
-
-        if (i + 1) % freq_valid_steps == 0 or i + 1 == n_steps:
-            if mesh is not None:  # the batch's loss from the ranks' shares
-                dist.all_reduce(loss, group=mesh.group)
-            m = {k: float(v)
-                 for k, v in evaluate_wholenet(net, state, eval_imgs, lmbda, mesh).items()}
-            eval_loss = m["loss"]
-            if eval_loss < best_loss:
-                best_loss = eval_loss
-                best_state = snapshot(state)
-                step_record = i
-            elif patience_steps and i - step_record > patience_steps:
-                torch._foreach_copy_(state_leaves(state), state_leaves(best_state))
-                step_record = i
-            logs.append(
-                HypernetTrainLog(
-                    samples_seen=samples_seen + batch_size,
-                    loss=float(loss),
-                    eval_loss=eval_loss,
-                    eval_psnr_db=m["psnr_db"],
-                    eval_rate_bpp=m["rate_latent_bpp"],
-                )
-            )
-            if lead:
-                cclog.log({
-                    "samples_seen": samples_seen + batch_size,
-                    "train_loss": float(loss),
-                    "eval_loss": eval_loss,
-                    "eval_psnr_db": m["psnr_db"],
-                    "eval_rate_bpp": m["rate_latent_bpp"],
-                    "lr": float(lr),
-                    "softround_temperature": float(temp),
-                    "noise_parameter": float(noise),
-                }, step=samples_seen + batch_size)
-            if verbose:
-                print(
-                    f"samples {samples_seen + batch_size:>8} | "
-                    f"train loss {float(loss):.5f} | eval loss {eval_loss:.5f} | "
-                    f"psnr {m['psnr_db']:6.2f} dB | "
-                    f"bpp {m['rate_latent_bpp']:.4f} | "
-                    f"{time.time() - t0:6.1f} s"
-                )
+                    cclog.log({
+                        "samples_seen": samples_seen + batch_size,
+                        "train_loss": train_loss,
+                        "eval_loss": eval_loss,
+                        "eval_psnr_db": m["psnr_db"],
+                        "eval_rate_bpp": m["rate_latent_bpp"],
+                        "lr": float(lr),
+                        "softround_temperature": float(temp),
+                        "noise_parameter": float(noise),
+                        **{f"{name}_ms": 1e-6 * ns / host_steps for name, ns in host_ns.items()},
+                        "train.checkpoint_ms": 1e-6 * checkpoint_ns,
+                        "train.validate_ms": 1e-6 * validate_span.ns,
+                    }, step=samples_seen + batch_size)
+                host_ns = dict.fromkeys(host_ns, 0)
+                host_steps = checkpoint_ns = 0
+                if verbose:
+                    print(
+                        f"samples {samples_seen + batch_size:>8} | "
+                        f"train loss {train_loss:.5f} | eval loss {eval_loss:.5f} | "
+                        f"psnr {m['psnr_db']:6.2f} dB | "
+                        f"bpp {m['rate_latent_bpp']:.4f} | "
+                        f"{1e-9 * (time.time_ns() - root.start_ns):6.1f} s"
+                    )
 
     return best_state, logs

@@ -11,8 +11,8 @@ sort of each image's candidate losses. ``encode_frame`` is the batch of one.
 
 from __future__ import annotations
 
-import time
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from contextlib import contextmanager
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,6 +22,7 @@ from coolchic_tpu_torch.params import stack_params, tree_map
 from coolchic_tpu_torch.train.presets import Preset, Warmup
 from coolchic_tpu_torch.train.quantize_model import ModuleQuantInfo, quantize_model_batch
 from coolchic_tpu_torch.train.step import BatchPhaseLogs, eval_metrics, make_generator, run_phase_batch
+from coolchic_tpu_torch.utils.trace import span
 
 Params = Dict[str, Any]
 
@@ -31,8 +32,10 @@ class EncodeStats:
     image would count it: eval forwards and optimizer steps (of a batch, the
     sum over its images). Per batch: the batched eval forwards (each one
     kernel launch per plane chunk, whatever the batch size) and the batched
-    optimizer steps. And the wall time of each stage (synchronised with the
-    device at stage ends)."""
+    optimizer steps. And the wall time of each stage: ``with
+    stats.stage(device, name):`` synchronises with the device on entry and
+    on exit, records the span ``encode.<name>`` (``utils/trace.py``) between
+    the two, and keeps its seconds in ``stage_seconds[name]``."""
 
     def __init__(self):
         self.n_eval_forwards = 0
@@ -40,17 +43,16 @@ class EncodeStats:
         self.n_batched_eval_forwards = 0
         self.n_batched_steps = 0
         self.stage_seconds: Dict[str, float] = {}
-        self._t0 = 0.0
 
-    def start(self, device: torch.device) -> None:
+    @contextmanager
+    def stage(self, device: torch.device, name: str) -> Iterator[None]:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        self._t0 = time.perf_counter()
-
-    def stop(self, device: torch.device, stage: str) -> None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        self.stage_seconds[stage] = time.perf_counter() - self._t0
+        with span(f"encode.{name}") as s:
+            yield
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        self.stage_seconds[name] = 1e-9 * s.ns
 
     def count_phase(self, logs: BatchPhaseLogs) -> None:
         self.n_eval_forwards += logs.n_eval_forwards * len(logs.loss)
@@ -160,23 +162,20 @@ def encode_frame_batch(
     if valid_hws is not None:
         valid_hws = torch.as_tensor(valid_hws, device=device)
     stats = EncodeStats()
-    stats.start(device)
-    params = warmup(targets, lmbdas, cfg, preset.warmup, seeds, valid_hws, stats)
-    stats.stop(device, "warmup")
+    with stats.stage(device, "warmup"):
+        params = warmup(targets, lmbdas, cfg, preset.warmup, seeds, valid_hws, stats)
     logs = None
     infos: Optional[List[Dict[str, ModuleQuantInfo]]] = None
     for idx, phase in enumerate(preset.all_phases):
-        stats.start(device)
-        gen = make_generator(device, *seeds, 1000 + idx)
-        params, logs = run_phase_batch(params, targets, lmbdas, cfg, phase, gen, valid_hws)
-        stats.count_phase(logs)
-        stats.stop(device, f"phase_{idx}")
+        with stats.stage(device, f"phase_{idx}"):
+            gen = make_generator(device, *seeds, 1000 + idx)
+            params, logs = run_phase_batch(params, targets, lmbdas, cfg, phase, gen, valid_hws)
+            stats.count_phase(logs)
         if phase.quantize_model:
-            stats.start(device)
-            params, infos, n_evals = quantize_model_batch(params, targets, lmbdas, cfg, valid_hws)
-            stats.n_eval_forwards += n_evals * n_images
-            stats.n_batched_eval_forwards += n_evals
-            stats.stop(device, f"quantize_model_{idx}")
+            with stats.stage(device, f"quantize_model_{idx}"):
+                params, infos, n_evals = quantize_model_batch(params, targets, lmbdas, cfg, valid_hws)
+                stats.n_eval_forwards += n_evals * n_images
+                stats.n_batched_eval_forwards += n_evals
     if logs is None:
         m = eval_metrics(params, cfg, targets, lmbdas, valid_hw=valid_hws)
         stats.n_eval_forwards += n_images

@@ -47,6 +47,7 @@ from coolchic_tpu_torch.models.config import CoolChicConfig
 from coolchic_tpu_torch.params import tree_clone, tree_leaves, tree_map
 from coolchic_tpu_torch.train.loss import LossOutput, loss_function
 from coolchic_tpu_torch.train.presets import TrainerPhase
+from coolchic_tpu_torch.utils.trace import span
 
 Params = Dict[str, Any]
 
@@ -289,68 +290,82 @@ def run_phase_batch(
     ``lmbdas[b]`` and, with ``valid_hws`` ([B, 2]), at its true size inside
     the buffer. Returns the best params seen per image (eval-mode loss) and
     their metrics; the input params are left untouched. The host waits for
-    the device once per validation."""
-    freq, n_full_blocks, rem, n_blocks_sched = phase_geometry(phase)
-    device = targets.device
-    n_images = targets.shape[0]
-    lmbdas = torch.as_tensor(lmbdas, dtype=torch.float32, device=device)
-    params = tree_clone(params)
-    leaves = tree_leaves(params)
-    tensors = trained_tensors(params, phase.optimized_module)
-    opt = AdamState.zeros(tensors)
+    the device once per validation.
 
-    def validate() -> torch.Tensor:
-        m = eval_metrics(params, cfg, targets, lmbdas, valid_hw=valid_hws)
-        return torch.stack([m.loss, m.psnr_db, m.rate_latent_bpp]).cpu()
+    Spans (``utils/trace.py``): ``phase`` (attrs ``images``, ``max_itr``)
+    around the call; inside it ``phase.step`` around each ``train_step``
+    call (the host's enqueue of one batched step, with any wait for room in
+    the launch queue), ``phase.validate`` around each validation, holding
+    ``phase.wait`` around its device-to-host copy alone (the wait for every
+    step enqueued before it). The record bookkeeping between them (the first
+    snapshot, the patience reloads, the record selections) is the root's
+    own time."""
+    with span("phase", images=targets.shape[0], max_itr=phase.max_itr):
+        freq, n_full_blocks, rem, n_blocks_sched = phase_geometry(phase)
+        device = targets.device
+        n_images = targets.shape[0]
+        lmbdas = torch.as_tensor(lmbdas, dtype=torch.float32, device=device)
+        params = tree_clone(params)
+        leaves = tree_leaves(params)
+        tensors = trained_tensors(params, phase.optimized_module)
+        opt = AdamState.zeros(tensors)
 
-    best = validate()  # [3, B]: loss, PSNR, bpp of each image's record
-    best_params, best_opt = tree_clone(params), opt.clone()
-    best_leaves = tree_leaves(best_params)
-    cnt_record = torch.zeros(n_images, dtype=torch.long)
-    active = torch.ones(n_images, dtype=torch.bool)
-    n_train_steps = torch.zeros(n_images, dtype=torch.long)
-    n_evals, n_batched_steps = 1, 0
+        def validate() -> torch.Tensor:
+            with span("phase.validate"):
+                m = eval_metrics(params, cfg, targets, lmbdas, valid_hw=valid_hws)
+                metrics = torch.stack([m.loss, m.psnr_db, m.rate_latent_bpp])
+                with span("phase.wait"):
+                    return metrics.cpu()
 
-    blocks = [(b, freq) for b in range(n_full_blocks)] + ([(n_full_blocks, rem)] if rem else [])
-    for t in tensors:
-        t.requires_grad_(True)
-    for block_idx, n_steps in blocks:
-        cnt_start = block_idx * freq
-        over_patience = (cnt_start - cnt_record) > phase.patience
-        if phase.schedule_lr:
-            if bool(over_patience.any()):
-                select_rows_(leaves, over_patience, best_leaves)
-                opt.select_rows_(over_patience, best_opt)
-                cnt_record = torch.where(over_patience, cnt_start, cnt_record)
-        else:
-            active = active & ~over_patience
-            if not bool(active.any()):
-                break
+        best = validate()  # [3, B]: loss, PSNR, bpp of each image's record
+        best_params, best_opt = tree_clone(params), opt.clone()
+        best_leaves = tree_leaves(best_params)
+        cnt_record = torch.zeros(n_images, dtype=torch.long)
+        active = torch.ones(n_images, dtype=torch.bool)
+        n_train_steps = torch.zeros(n_images, dtype=torch.long)
+        n_evals, n_batched_steps = 1, 0
 
-        sched_t = max(cnt_start - 1, 0)
-        temperature = linear_schedule(*phase.softround_temperature, sched_t, phase.max_itr)
-        noise_parameter = linear_schedule(*phase.noise_parameter, sched_t, phase.max_itr)
-        if phase.schedule_lr:
-            lr = cosine_lr(phase.lr, phase.end_lr, block_idx, n_blocks_sched)
-        else:
-            lr = phase.lr
-        for _ in range(n_steps):
-            train_step(params, tensors, opt, targets, lmbdas, cfg, phase, lr,
-                       temperature, noise_parameter, generator, valid_hws)
-        n_batched_steps += n_steps
-        n_train_steps += n_steps * active
+        blocks = [(b, freq) for b in range(n_full_blocks)] + ([(n_full_blocks, rem)] if rem else [])
+        for t in tensors:
+            t.requires_grad_(True)
+        for block_idx, n_steps in blocks:
+            cnt_start = block_idx * freq
+            over_patience = (cnt_start - cnt_record) > phase.patience
+            if phase.schedule_lr:
+                if bool(over_patience.any()):
+                    select_rows_(leaves, over_patience, best_leaves)
+                    opt.select_rows_(over_patience, best_opt)
+                    cnt_record = torch.where(over_patience, cnt_start, cnt_record)
+            else:
+                active = active & ~over_patience
+                if not bool(active.any()):
+                    break
 
-        m = validate()
-        n_evals += 1
-        significant = ((m[2] - best[2]) < 0.001) | ((m[1] - best[1]) > 0.001)
-        new_record = active & (m[0] < best[0]) & significant
-        if bool(new_record.any()):
-            select_rows_(best_leaves, new_record, leaves)
-            best_opt.select_rows_(new_record, opt)
-            best = torch.where(new_record, m, best)
-            cnt_record = torch.where(new_record, cnt_start + n_steps - 1, cnt_record)
-    for t in tensors:
-        t.requires_grad_(False)
+            sched_t = max(cnt_start - 1, 0)
+            temperature = linear_schedule(*phase.softround_temperature, sched_t, phase.max_itr)
+            noise_parameter = linear_schedule(*phase.noise_parameter, sched_t, phase.max_itr)
+            if phase.schedule_lr:
+                lr = cosine_lr(phase.lr, phase.end_lr, block_idx, n_blocks_sched)
+            else:
+                lr = phase.lr
+            for _ in range(n_steps):
+                with span("phase.step"):
+                    train_step(params, tensors, opt, targets, lmbdas, cfg, phase, lr,
+                               temperature, noise_parameter, generator, valid_hws)
+            n_batched_steps += n_steps
+            n_train_steps += n_steps * active
+
+            m = validate()
+            n_evals += 1
+            significant = ((m[2] - best[2]) < 0.001) | ((m[1] - best[1]) > 0.001)
+            new_record = active & (m[0] < best[0]) & significant
+            if bool(new_record.any()):
+                select_rows_(best_leaves, new_record, leaves)
+                best_opt.select_rows_(new_record, opt)
+                best = torch.where(new_record, m, best)
+                cnt_record = torch.where(new_record, cnt_start + n_steps - 1, cnt_record)
+        for t in tensors:
+            t.requires_grad_(False)
     return best_params, BatchPhaseLogs(best[0], best[1], best[2], n_evals, n_batched_steps,
                                        n_train_steps)
 

@@ -40,6 +40,7 @@ from coolchic_tpu_torch.params import to_numpy_pytree
 from coolchic_tpu_torch.train.encode import EncodeStats, encode_frame_with_quant_info
 from coolchic_tpu_torch.train.presets import Preset
 from coolchic_tpu_torch.train.step import split_target
+from coolchic_tpu_torch.utils.trace import span
 from coolchic_tpu_torch.utils.types import resolve_device
 from coolchic_tpu_torch.video.codingstructure import CodingStructure, Frame, lmbda_from_depth
 
@@ -240,40 +241,41 @@ class VideoEncoder:
         against the stored references, the output quantization, the 4:2:0
         chroma repeat. Returns (the float [3, H, W] frame a decoder
         reconstructs, the frame's bytes); ``stats`` gets the host seconds of
-        the write and of the decode."""
-        t0 = time.perf_counter()
-        frame_bytes = self._write_frame(params, infos, frame, RECONSTRUCT_HLS_SIG_BLKSIZE)
-        t1 = time.perf_counter()
-        gop = self._gop_header()
-        raw12, finfo, _ = _decode_frame_raw12(frame_bytes, 0, gop)
-        max_dyn = (1 << self.bitdepth) - 1
+        the write and of the decode, its spans ``write.frame`` and
+        ``decode.int`` (``utils/trace.py``)."""
+        with span("write.frame") as write:
+            frame_bytes = self._write_frame(params, infos, frame, RECONSTRUCT_HLS_SIG_BLKSIZE)
+        with span("decode.int") as decode:
+            gop = self._gop_header()
+            raw12, finfo, _ = _decode_frame_raw12(frame_bytes, 0, gop)
+            max_dyn = (1 << self.bitdepth) - 1
 
-        if raw12.shape[0] == 3:
-            f444 = raw12[:3]
-        else:
-            # The references as the decoder stores them, and its search for
-            # the nearest earlier (and later) display index.
-            stored: Dict[int, np.ndarray] = {}
-            for k, enc in self.all_frame_encoders.items():
-                fr = self.coding_structure.get_frame_from_coding_order(int(k))
-                vq = np.round(np.asarray(enc.decoded, np.float64) * max_dyn).astype(np.int64)
-                stored[fr.display_order] = (vq << PREC) // max_dyn
-            disp = frame.display_order
-            ref_prev = next((stored[i] for i in range(disp - 1, -1, -1) if i in stored), None)
-            ref_next = None
-            if raw12.shape[0] == 9:
-                ref_next = next((stored[i] for i in range(disp + 1, gop.intra_period + 1)
-                                 if i in stored), None)
-            f444 = process_inter_int(raw12, ref_prev, ref_next, finfo["frame_header"].flow_gain)
+            if raw12.shape[0] == 3:
+                f444 = raw12[:3]
+            else:
+                # The references as the decoder stores them, and its search for
+                # the nearest earlier (and later) display index.
+                stored: Dict[int, np.ndarray] = {}
+                for k, enc in self.all_frame_encoders.items():
+                    fr = self.coding_structure.get_frame_from_coding_order(int(k))
+                    vq = np.round(np.asarray(enc.decoded, np.float64) * max_dyn).astype(np.int64)
+                    stored[fr.display_order] = (vq << PREC) // max_dyn
+                disp = frame.display_order
+                ref_prev = next((stored[i] for i in range(disp - 1, -1, -1) if i in stored), None)
+                ref_next = None
+                if raw12.shape[0] == 9:
+                    ref_next = next((stored[i] for i in range(disp + 1, gop.intra_period + 1)
+                                     if i in stored), None)
+                f444 = process_inter_int(raw12, ref_prev, ref_next, finfo["frame_header"].flow_gain)
 
-        vq = np.clip((f444.astype(np.int64) * max_dyn + HALF) >> PREC, 0, max_dyn)
-        if self.frame_data_type == "yuv420":
-            u = np.repeat(np.repeat(vq[1, ::2, ::2], 2, 0), 2, 1)
-            v = np.repeat(np.repeat(vq[2, ::2, ::2], 2, 0), 2, 1)
-            vq = np.stack([vq[0], u, v])
+            vq = np.clip((f444.astype(np.int64) * max_dyn + HALF) >> PREC, 0, max_dyn)
+            if self.frame_data_type == "yuv420":
+                u = np.repeat(np.repeat(vq[1, ::2, ::2], 2, 0), 2, 1)
+                v = np.repeat(np.repeat(vq[2, ::2, ::2], 2, 0), 2, 1)
+                vq = np.stack([vq[0], u, v])
         if stats is not None:
-            stats.stage_seconds["write"] = t1 - t0
-            stats.stage_seconds["integer_decode"] = time.perf_counter() - t1
+            stats.stage_seconds["write"] = 1e-9 * write.ns
+            stats.stage_seconds["integer_decode"] = 1e-9 * decode.ns
         return vq.astype(np.float32) / np.float32(max_dyn), frame_bytes
 
     def to_bitstream(self, hls_sig_blksize: int = 16) -> bytes:
