@@ -53,6 +53,24 @@ Phases, one JSON line each:
      the same rows. Timed by CUDA-graph replay, beside B times the f64
      bound. Every path then fails if it launched the kernel on a batch size
      not checked here at its shapes.
+     Then the upsampling filters' weight-gradient kernel
+     (``ops/ups_filter.py``): the 24 weight gradients of one backward of the
+     default decoder's upsampling cascade, each as the kernel receives it,
+     at every (image size, batch) a path below trains the upsampling at
+     (512x768 at each of BATCH_SIZES, 256x256 at 1, 2 and 8, 1080x1920 at
+     each of VIDEO_BATCH_SIZES): within 1e-5 of the plain version in
+     float64 (relative to each tap's sum of |terms|) and equal bit for bit on
+     a second run. Four of them (``ups_wgrad`` lines: 512x768 at B = 8, the
+     batched encode, and B = 1, the main path; 256x256 at B = 8, the
+     hypernet trainer; 1080x1920 at B = 1, a video frame) are timed by
+     CUDA-graph replay beside the byte bound (x and the output gradient read
+     once at 3.35 TB/s), with the host's time of a call, the plain version
+     in f32 and, as a yardstick only, the library call it replaces
+     (``aten.convolution_backward`` with the output mask (False, True,
+     False)); per level (4 calls) and per step (24). Every path then fails
+     unless it launched the kernel 4 times per x2 level for each training
+     step that trains the upsampling and at no other time (eval forwards,
+     latent-only phases), and only at launch geometries checked here.
   3. main path: encode a synthetic 512x768 RGB image (numpy seed 0) with the
      default DecoderConfig (arm 24,2; 40-wide synthesis; 7 grids) and the
      c3x recipe of preset_cfg/c3x.yaml, iteration counts cut (printed),
@@ -357,6 +375,66 @@ def check_batch_sizes_seen(path: str, checked=BATCH_SIZES) -> dict:
     return {str(b): n for b, n in seen.items()}
 
 
+# Launch geometries of the upsampling's weight-gradient kernel (the keys of
+# ops/ups_filter.py's launches_by_geometry) that phase_ups_wgrad held to the
+# plain version, and the launches that the training steps counted since the
+# last ups_reset() make.
+UPS_CHECKED = set()
+UPS_WANT = {"launches": 0}
+UPS_BY_PATH = {}  # what check_ups_launches found, by path
+
+
+def count_ups_training_steps() -> None:
+    """Wrap ``train/step.py::train_step`` (each step of ``run_phase_batch``
+    and of the profiler calls it) so that a step adds to ``UPS_WANT`` the
+    kernel launches it makes: 4 per x2 level (the x2 passes along H and W,
+    the pre-concat filter's two) when it trains the upsampling, else none."""
+    from coolchic_tpu_torch.train import step
+
+    real = step.train_step
+
+    def counted(params, tensors, opt, targets, lmbdas, cfg, phase, *args):
+        if {"all", "upsampling"} & set(phase.optimized_module):
+            UPS_WANT["launches"] += 4 * (cfg.latent_n_grids - 1)
+        return real(params, tensors, opt, targets, lmbdas, cfg, phase, *args)
+
+    step.train_step = counted
+
+
+def ups_reset() -> None:
+    from coolchic_tpu_torch.ops import ups_filter
+
+    ups_filter.launch_count = 0
+    ups_filter.launches_by_geometry.clear()
+    UPS_WANT["launches"] = 0
+
+
+def check_ups_launches(path: str, more: int = 0) -> dict:
+    """The upsampling kernel's launches since ``ups_reset()``. Raises unless
+    they are those of the training steps counted since then, plus ``more``
+    (steps that ``count_ups_training_steps`` does not see: the hypernet
+    trainer's, another process's), and unless ``phase_ups_wgrad`` held each
+    of their launch geometries to the plain version. Returns the launches
+    and their count by batch size."""
+    from coolchic_tpu_torch.ops import ups_filter
+
+    want = UPS_WANT["launches"] + more
+    if ups_filter.launch_count != want:
+        raise AssertionError(f"{path} launched ups_wgrad {ups_filter.launch_count} times; its "
+                             f"training steps make {want} launches")
+    unchecked = set(ups_filter.launches_by_geometry) - UPS_CHECKED
+    if unchecked:
+        raise AssertionError(f"{path} launched ups_wgrad at {len(unchecked)} geometries that no "
+                             f"check held to the plain version, e.g. {sorted(map(str, unchecked))[0]}")
+    by_batch = {}
+    for geometry, n in ups_filter.launches_by_geometry.items():
+        b = geometry[3][1]
+        by_batch[b] = by_batch.get(b, 0) + n
+    UPS_BY_PATH[path] = {"launches": want,
+                         "by_batch": {str(b): n for b, n in sorted(by_batch.items())}}
+    return UPS_BY_PATH[path]
+
+
 def phase_build() -> None:
     from coolchic_tpu_torch.bitstream.entropy import build_library
     from coolchic_tpu_torch.ops.build import CSRC_DIR, load_library
@@ -605,6 +683,106 @@ def phase_kernel_checks() -> dict:
     return out
 
 
+def graph_ms(fn, per_graph: int = 20) -> float:
+    """Device time of one call of ``fn``: ``per_graph`` calls captured in a
+    CUDA graph and replayed, so that the host's time per call is not
+    timed."""
+    import torch
+
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    return time_ms(graph.replay, per_sample=1) / per_graph
+
+
+def phase_ups_wgrad() -> dict:
+    """The upsampling filters' weight-gradient kernel at every (image size,
+    batch) that a path below trains the upsampling at (see the module
+    docstring); fills ``UPS_CHECKED``. Returns the per-step numbers of the
+    timed shapes for the ``kernels`` line."""
+    import torch
+
+    from coolchic_tpu_torch.ops import ups_filter
+    from coolchic_tpu_torch.utils.ups_check import cascade_weight_grads, weight_grad_error
+
+    timed = {((IMG_H, IMG_W), 8), ((IMG_H, IMG_W), 1), ((HT_PATCH, HT_PATCH), HT_BATCH),
+             ((VIDEO_H, VIDEO_W), 1)}
+    checked = ([((IMG_H, IMG_W), b) for b in BATCH_SIZES]
+               + [((HT_PATCH, HT_PATCH), b) for b in sorted({1, HT_CPU_BATCH, *HT_BATCH_SIZES})]
+               + [((VIDEO_H, VIDEO_W), b) for b in VIDEO_BATCH_SIZES])
+    out, max_err = {}, 0.0
+    for img_size, n_images in checked:
+        calls = cascade_weight_grads(img_size, n_images, "cuda")
+        if len(calls) != 24:
+            raise AssertionError(f"{len(calls)} weight gradients in one backward, not 24")
+        for x, gy, k, transposed, axis in calls:
+            ups_filter.launches_by_geometry.clear()
+            got = ups_filter.weight_grad_cuda(x, gy, k, transposed, axis)
+            err = weight_grad_error(got, x, gy, k, transposed, axis)
+            if err > 1e-5 or not torch.equal(ups_filter.weight_grad_cuda(x, gy, k, transposed,
+                                                                          axis), got):
+                raise AssertionError(f"ups_wgrad kernel off its plain version ({err}) or not "
+                                     f"repeatable at {tuple(x.shape)}, {tuple(gy.shape)}, k {k}")
+            UPS_CHECKED.update(ups_filter.launches_by_geometry)
+            max_err = max(max_err, err)
+        if (img_size, n_images) in timed:
+            out[f"{img_size[0]}x{img_size[1]}_b{n_images}"] = ups_wgrad_times(
+                img_size, n_images, calls)
+        del calls
+    emit({"phase": "ups_wgrad_checks", "shapes": [[list(s), b] for s, b in checked],
+          "geometries": len(UPS_CHECKED), "max_err": max_err})
+    return out
+
+
+def ups_wgrad_times(img_size, n_images: int, calls) -> dict:
+    """The ``ups_wgrad`` line of one cascade: per level (4 calls) and per step
+    (24), the kernel's device ms (CUDA-graph replay) and host µs a call
+    (enqueue only), its byte bound, the plain version's ms and the library
+    call's it replaces."""
+    import torch
+
+    from coolchic_tpu_torch.ops import ups_filter
+    from coolchic_tpu_torch.utils.ups_check import weight_grad_error
+
+    # Level i (0: the coarsest x2 step) holds the i-th smallest call of each kind.
+    kind_of = {id(c): ("x2_" if c[3] else "preconcat_") + "HW"[c[4] - 2] for c in calls}
+    rank = {}
+    for kind in set(kind_of.values()):
+        same = sorted((c for c in calls if kind_of[id(c)] == kind), key=lambda c: c[0].numel())
+        rank.update({id(c): i for i, c in enumerate(same)})
+    levels = [{"level": i, "calls": []} for i in range(6)]
+    for call in calls:
+        x, gy, k, transposed, axis = call
+        got = ups_filter.weight_grad_cuda(x, gy, k, transposed, axis)
+        stride, padding = ups_filter.conv_args(transposed, axis, k)
+        w = torch.zeros((n_images, 1, k, 1) if axis == 2 else (n_images, 1, 1, k), device="cuda")
+        n_bytes = 4 * (x.numel() + gy.numel())
+        line = {
+            "kind": kind_of[id(call)], "x": list(x.shape), "gy": list(gy.shape), "k": k,
+            "max_err": weight_grad_error(got, x, gy, k, transposed, axis), "bytes": n_bytes,
+            "bound_ms": 1e3 * n_bytes / PEAK_BYTES_PER_S,
+            "ms": graph_ms(lambda: ups_filter.weight_grad_cuda(x, gy, k, transposed, axis)),
+            "host_us": 1e3 * host_ms(lambda: ups_filter.weight_grad_cuda(x, gy, k, transposed,
+                                                                         axis)),
+            "plain_ms": time_ms(lambda: ups_filter.weight_grad_plain(x, gy, k, transposed, axis)),
+            "library_ms": graph_ms(lambda: torch.ops.aten.convolution_backward(
+                gy, x, w, None, stride, padding, (1, 1), transposed, (0, 0), n_images,
+                (False, True, False))),
+        }
+        levels[rank[id(call)]]["calls"].append(line)
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms", "host_us")
+    for level in levels:
+        level.update({key: sum(c[key] for c in level["calls"]) for key in keys})
+    step = {key + "_per_step": sum(level[key] for level in levels) for key in keys}
+    step["max_err"] = max(c["max_err"] for level in levels for c in level["calls"])
+    step["share_of_bound"] = step["bound_ms_per_step"] / step["ms_per_step"]
+    emit({"phase": "ups_wgrad", "img_size": list(img_size), "n_images": n_images, **step,
+          "levels": levels})
+    return step
+
+
 def synthetic_image(h: int, w: int, seed: int = 0):
     """Smooth gradients plus texture, [3, H, W] in [0, 1], from a numpy seed
     (the noise, and for seeds past 0 a shift of the two textures)."""
@@ -682,9 +860,11 @@ def phase_main_path():
     torch.cuda.reset_peak_memory_stats()
     ar.launch_count = 0
     ar.launches_by_batch.clear()
+    ups_reset()
     run = encode_one_run(run_cfg, seed=0, device="cuda")
     launches = ar.launch_count
     launches_by_batch = check_batch_sizes_seen("the main path")
+    ups = check_ups_launches("the main path")
     stats = run.result.stats
 
     cfg = dec.to_coolchic_config((IMG_H, IMG_W))
@@ -729,6 +909,7 @@ def phase_main_path():
         "arm_rate_launches": launches,
         "arm_rate_launches_by_batch": launches_by_batch,
         "launches_per_eval_forward": launches_per_forward,
+        "ups_wgrad": ups,
         "nn_quant": {m: i._asdict() for m, i in run.infos.items()},
         "card_vs_cpu_eval": cross,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -894,11 +1075,13 @@ def phase_batch_path(single_steps_per_s: float) -> int:
     torch.cuda.reset_peak_memory_stats()
     ar.launch_count = 0
     ar.launches_by_batch.clear()
+    ups_reset()
     result, infos = encode_frame_batch(
         targets, BATCH_LMBDAS, cfg, enc.recipe, seeds=list(range(n_images)),
         valid_hws=valid_hws, with_quant_info=True)
     launches = ar.launch_count
     launches_by_batch = check_batch_sizes_seen("the batch path")
+    check_ups_launches("the batch path")
     peak_bytes = torch.cuda.max_memory_allocated()
     stats = result.stats
 
@@ -1079,11 +1262,13 @@ def phase_video_path() -> int:
     torch.cuda.reset_peak_memory_stats()
     ar.launch_count = 0
     ar.launches_by_batch.clear()
+    ups_reset()
     t0 = time.perf_counter()
     run = encode_one_run(run_cfg, seed=0, device="cuda")
     encode_s = time.perf_counter() - t0
     launches = ar.launch_count
     launches_by_batch = check_batch_sizes_seen("the video path", VIDEO_BATCH_SIZES)
+    check_ups_launches("the video path")
     peak_bytes = torch.cuda.max_memory_allocated()
     venc = run.result
     cfg = dec.to_coolchic_config((VIDEO_H, VIDEO_W))
@@ -1251,6 +1436,7 @@ def phase_hypernet_path(trained_params) -> int:
     torch.cuda.reset_peak_memory_stats()
     ar.launch_count = 0
     ar.launches_by_batch.clear()
+    ups_reset()
 
     # 1. The one-shot eval forward of 8 predicted decoders: one launch at B = 8.
     t0 = clock()
@@ -1354,6 +1540,7 @@ def phase_hypernet_path(trained_params) -> int:
 
     launches = ar.launch_count
     launches_by_batch = check_batch_sizes_seen("the hypernet path")
+    check_ups_launches("the hypernet path")
     peak_bytes = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     profiles = {b: profile_hypernet(b, (IMG_H, IMG_W), steps=3) for b in (1, HN_IMAGES)}
@@ -1480,7 +1667,12 @@ def phase_hypernet_train_path() -> int:
         state.hypernet[key] = HN_HEAD_STD * torch.randn(
             state.hypernet[key].shape, generator=gen, device="cuda")
     imgs = torch.tensor(next(synthetic_batches(HT_CPU_BATCH, (HT_PATCH, HT_PATCH), seed=7)))
+    ups_reset()
     card_vs_cpu = hypernet_step_card_vs_cpu(net, state, imgs)
+    # Launches of the whole-net steps, which count_ups_training_steps does
+    # not see: one card step here, then those of each train_wholenet call.
+    ups_per_step = 4 * (cfg.latent_n_grids - 1)
+    ups_steps = {"launches": ups_per_step}
     del net, state
 
     common = ["--synthetic", "--device", "cuda", "--disable_wandb", "--patch_size",
@@ -1515,6 +1707,8 @@ def phase_hypernet_train_path() -> int:
 
     def spy_train(net, state, data_iter, eval_imgs, **kw):
         current["in_loop"] = True
+        ups_steps["launches"] += ups_per_step * max(
+            (kw["n_samples"] - kw.get("samples_offset", 0)) // kw["batch_size"], 1)
         t0 = clock()
         best, logs = real_train(net, state, data_iter, eval_imgs, **kw)
         calls.append({"net": net, "state": state, "eval_imgs": eval_imgs, "kw": kw,
@@ -1556,6 +1750,7 @@ def phase_hypernet_train_path() -> int:
         inference.save_checkpoint = training.save_checkpoint = real_save
     launches = ar.launch_count
     launches_by_batch = check_batch_sizes_seen("the hypernet train path", HT_BATCH_SIZES)
+    check_ups_launches("the hypernet train path", ups_steps["launches"])
     peak_bytes = torch.cuda.max_memory_allocated()
     n_validations = sum(len(c["logs"]) for c in calls)
     n_match_evals = (HT_MATCH[0] // HT_MATCH[1]) * (1 + 1) + 1
@@ -1671,6 +1866,7 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
     from coolchic_tpu_torch.hypernet.training import evaluate_wholenet
     from coolchic_tpu_torch.metalearning import synthetic_batches
     from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.ops import ups_filter
     from coolchic_tpu_torch.parallel import launch
     from coolchic_tpu_torch.train.encode import encode_frame_batch
     from coolchic_tpu_torch.train.step import detailed_eval_metrics, eval_metrics
@@ -1713,6 +1909,7 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
     torch.cuda.synchronize()
     ar.launch_count = 0
     ar.launches_by_batch.clear()
+    ups_reset()
 
     # --- the sharded encode, one rank on NCCL, and its reference here, both
     # with cuDNN's deterministic algorithms (the rank takes this process's
@@ -1728,12 +1925,16 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
         sharded_s = clock() - t0
         sharded_launches = ar.launch_count
         sizes_of("sharded_encode", before, BATCH_SIZES)
+        ups_sharded = ups_filter.launch_count  # the rank's, which run the reference's steps
         before = Counter(ar.launches_by_batch)
         t0 = clock()
         want, want_infos = encode_frame_batch(targets.cuda(), MG_LMBDAS, batch_cfg, enc.recipe,
                                               seeds, with_quant_info=True)
         reference_s = clock() - t0
         sizes_of("sharded_encode_reference", before, BATCH_SIZES)
+        if ups_sharded != UPS_WANT["launches"]:
+            raise AssertionError(f"the sharded encode launched ups_wgrad {ups_sharded} times, "
+                                 f"its reference's steps make {UPS_WANT['launches']}")
     finally:
         torch.backends.cudnn.deterministic = False
     emit({"phase": "multi_gpu_launcher_startup", "seconds": rank["launcher_startup_s"]})
@@ -1821,6 +2022,11 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
     detailed = {k: v.item() for k, v in detailed_eval_metrics(
         run.result.params, cfg, target, 1e-3).items()}
     sizes_of("detailed_eval_metrics", before, BATCH_SIZES)
+    # The sharded rank's launches, and the trainer's steps in this process
+    # (--data_parallel 0) and in its rank (1).
+    ups_more = ups_sharded + 2 * 4 * (batch_cfg.latent_n_grids - 1) * max(
+        MG_HT_SAMPLES // HT_BATCH, 1)
+    check_ups_launches("the multi-GPU and tools path", ups_more)
     m = eval_metrics(run.result.params, cfg, target, 1e-3)
     per_grid = sum(detailed[f"latent_{i}_bpp"] for i in range(cfg.latent_n_grids))
     for k in ("loss", "total_rate_bpp"):
@@ -1848,6 +2054,7 @@ def main() -> int:
         print(f"chip_smoke: no coolchic_tpu_torch package beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1862,6 +2069,8 @@ def main() -> int:
 
     timed("build", phase_build)
     pyramid = timed("kernel_checks", phase_kernel_checks)
+    ups = timed("ups_wgrad", phase_ups_wgrad)
+    count_ups_training_steps()
     launches, run, cfg, img, cool, single_steps_per_s = timed("main_path", phase_main_path)
     timed("bitstream", phase_bitstream, run, cfg, img, cool)
     batch_launches = timed("batch_path", phase_batch_path, single_steps_per_s)
@@ -1900,6 +2109,15 @@ def main() -> int:
         "bound_1080p_ms": pyramid["bound_1080p_ms"],
         "bound_f64_1080p_ms": pyramid["bound_f64_1080p_ms"],
         "library_ms": None,  # no single PyTorch call computes this function
+    }, {
+        "name": "ups_wgrad",
+        "route": "cuda",
+        "source": "coolchic_tpu_torch/csrc/ups_wgrad.cu",
+        "replaces": None,  # cuDNN's grouped and ATen's depthwise weight gradients
+        "launches": sum(p["launches"] for p in UPS_BY_PATH.values()),
+        "launches_by_path": UPS_BY_PATH,
+        "geometries_checked": len(UPS_CHECKED),
+        "by_shape": ups,
     }], "seconds": time.perf_counter() - t0, "phase_seconds": phase_seconds})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

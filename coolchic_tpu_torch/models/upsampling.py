@@ -6,7 +6,9 @@ convolutions (stride 2) over the edge-padded running tensor, cropped by
 ``2*(k//2) - 1 + k//2``; each pre-concat filter is two zero-padded 1-D
 convolutions plus a residual. The latent channels ride the batch axis, so one
 1-channel kernel serves every channel; a batch of images rides the channel
-axis as groups, each image with its own filters.
+axis as groups, each image with its own filters. Each 1-D convolution is
+``ops/ups_filter.py::filter_1d``: the library's call, with a hand-written
+weight gradient.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from coolchic_tpu_torch.models.masking import level_valid_hw, replicate_extend
+from coolchic_tpu_torch.ops.ups_filter import filter_1d
 
 UpsParams = Dict[str, List[torch.Tensor]]
 
@@ -72,9 +75,9 @@ def upsample_x2(x: torch.Tensor, half: torch.Tensor, k: int) -> torch.Tensor:
     crop = 2 * p0 - 1 + k // 2
     _, b, h, w = x.shape
     y = F.pad(x, (0, 0, p0, p0), mode="replicate")
-    y = F.conv_transpose2d(y, w1d.reshape(b, 1, k, 1), stride=(2, 1), groups=b)
+    y = filter_1d(y, w1d.reshape(b, 1, k, 1), transposed=True, axis=2)
     y = F.pad(y[:, :, crop : crop + 2 * h], (p0, p0, 0, 0), mode="replicate")
-    y = F.conv_transpose2d(y, w1d.reshape(b, 1, 1, k), stride=(1, 2), groups=b)
+    y = filter_1d(y, w1d.reshape(b, 1, 1, k), transposed=True, axis=3)
     return y[..., crop : crop + 2 * w]
 
 
@@ -83,8 +86,8 @@ def preconcat_filter(x: torch.Tensor, half: torch.Tensor, k: int) -> torch.Tenso
     the images as groups), zero padding, plus a residual."""
     w1d = symmetric_kernel_1d(half, k)
     b = x.shape[1]
-    y = F.conv2d(x, w1d.reshape(b, 1, k, 1), padding=(k // 2, 0), groups=b)
-    y = F.conv2d(y, w1d.reshape(b, 1, 1, k), padding=(0, k // 2), groups=b)
+    y = filter_1d(x, w1d.reshape(b, 1, k, 1), transposed=False, axis=2)
+    y = filter_1d(y, w1d.reshape(b, 1, 1, k), transposed=False, axis=3)
     return y + x
 
 

@@ -1,7 +1,9 @@
 """The port on a GPU: the ARM kernel against its plain version (the video
 path's 1080p pyramid included), the eval forward (I, P and B frames, the
 fixed-point warp), the bitstream's float decode, the hypernet's batched eval
-forward and its delta search on the card against the CPU. Every test here needs an NVIDIA GPU and skips without one. The file imports no JAX, so it runs where JAX is not
+forward and its delta search on the card against the CPU; the upsampling
+filters' weight-gradient kernel against its plain version in float64 and
+the library's forward and input gradient. Every test here needs an NVIDIA GPU and skips without one. The file imports no JAX, so it runs where JAX is not
 installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -543,3 +545,173 @@ def test_detailed_eval_metrics_on_the_card_match_the_cpu(cuda):
             assert abs(out["cuda"][k] - v) <= 1e-4, k
         else:
             np.testing.assert_allclose(out["cuda"][k], v, rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+# --------------------------------------------------------------------------- #
+# The upsampling filters' weight-gradient kernel (ops/ups_filter.py)
+# --------------------------------------------------------------------------- #
+# (image size, images): the main paths' cascades (the batched encode, the
+# hypernet trainer, a 1080p frame) and ragged ones.
+UPS_SHAPES = [((512, 768), 8), ((256, 256), 8), ((1080, 1920), 1), ((37, 130), 3),
+              ((17, 33), 5), ((5, 3), 2), ((1, 1), 1)]
+
+
+@pytest.mark.parametrize("img_size,n_images", UPS_SHAPES)
+def test_ups_wgrad_kernel_matches_plain_in_float64(cuda, img_size, n_images):
+    """Every weight gradient of the cascade (24 for 7 grids): the kernel
+    within 1e-5 of the plain version in float64, relative to each tap's sum
+    of |terms| (``utils/ups_check.py::weight_grad_error``), and equal bit for
+    bit on a second run."""
+    from coolchic_tpu_torch.ops import ups_filter
+    from coolchic_tpu_torch.utils.ups_check import cascade_weight_grads, weight_grad_error
+
+    count = ups_filter.launch_count
+    calls = cascade_weight_grads(img_size, n_images, cuda)
+    assert len(calls) == 24 and ups_filter.launch_count == count + 24
+    for x, gy, k, transposed, axis in calls:
+        got = ups_filter.weight_grad_cuda(x, gy, k, transposed, axis)
+        err = weight_grad_error(got, x, gy, k, transposed, axis)
+        assert err <= 1e-5, (tuple(x.shape), tuple(gy.shape), k, transposed, axis, err)
+        assert torch.equal(ups_filter.weight_grad_cuda(x, gy, k, transposed, axis), got)
+
+
+# Tap counts a decoder may take beside the default 8 (x2) and 7 (pre-concat):
+# fewer taps than the kernel's 8 slots, and 9 to 15 in its 16-slot build. The
+# pre-concat filter is odd. Input shapes [C, B, H, W]: ragged ones, one with
+# an output gradient that is a strided view, and the finest level of the
+# 512x768 cascade at B = 8.
+UPS_TAPS = [(True, 4), (True, 6), (True, 9), (True, 15), (False, 3), (False, 9), (False, 15)]
+UPS_X_SHAPES = [(1, 1, 1, 1), (2, 3, 5, 7), (3, 2, 17, 33), "strided", "main"]
+
+
+@pytest.mark.parametrize("axis", [2, 3])
+@pytest.mark.parametrize("transposed,k", UPS_TAPS)
+@pytest.mark.parametrize("x_shape", UPS_X_SHAPES)
+def test_ups_wgrad_kernel_matches_plain_at_other_tap_counts(cuda, x_shape, transposed, k, axis):
+    """The kernel at tap counts the default decoder does not use, along both
+    axes: within 1e-5 of the plain version in float64 (``weight_grad_error``)
+    and equal bit for bit on a second run."""
+    from coolchic_tpu_torch.ops import ups_filter
+    from coolchic_tpu_torch.utils.ups_check import weight_grad_error
+
+    gen = torch.Generator(cuda).manual_seed(k + 16 * axis)
+    strided = x_shape == "strided"
+    if strided:
+        x_shape = (3, 4, 12, 40)
+    elif x_shape == "main":
+        x_shape = ((6, 8, 264, 384) if axis == 2 else (6, 8, 512, 392)) if transposed \
+            else (1, 8, 512, 768)
+    gy_shape = list(x_shape)
+    if transposed:
+        gy_shape[axis] = 2 * (x_shape[axis] - 1) + k
+    x = torch.randn(x_shape, generator=gen, device=cuda)
+    if strided:  # the output gradient as the channels' slice of a [B, 2C, H, W] tensor
+        n_c, n_b = gy_shape[:2]
+        gy = torch.randn((n_b, 2 * n_c, *gy_shape[2:]), generator=gen, device=cuda)
+        gy = gy[:, 1 : 1 + n_c].transpose(0, 1)
+    else:
+        gy = torch.randn(gy_shape, generator=gen, device=cuda)
+    got = ups_filter.weight_grad_cuda(x, gy, k, transposed, axis)
+    err = weight_grad_error(got, x, gy, k, transposed, axis)
+    assert got.shape == (x_shape[1], k) and err <= 1e-5, err
+    assert torch.equal(ups_filter.weight_grad_cuda(x, gy, k, transposed, axis), got)
+
+
+@pytest.mark.parametrize("transposed,axis", [(True, 2), (True, 3), (False, 2), (False, 3)])
+def test_ups_filter_forward_and_input_gradient_are_the_library_s(cuda, monkeypatch,
+                                                                 transposed, axis):
+    """At the finest level of the 512x768 cascade at B = 8: the forward and
+    the input gradient equal autograd's through the library call bit for
+    bit; the weight gradient is the kernel's (one launch), within 1e-5 of
+    float64 (``weight_grad_error``), the library's own error printed beside it.
+    Compared in cuDNN's deterministic mode, since by default its stride-2
+    transposed convolution along W at this shape sums in another order from
+    call to call: two library calls on the same inputs differ."""
+    import torch.nn.functional as F
+
+    from coolchic_tpu_torch.ops import ups_filter
+    from coolchic_tpu_torch.utils.ups_check import weight_grad_error
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gen = torch.Generator(cuda).manual_seed(7)
+    k = 8 if transposed else 7
+    x_shape = (6, 8, 264, 384) if axis == 2 else (6, 8, 512, 392)
+    if not transposed:  # the pre-concat filter's input: grid 0 as a view of [B, C, H, W]
+        x_shape = (1, 8, 512, 768)
+    x = torch.randn(x_shape, generator=gen, device=cuda)
+    if not transposed:
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    w = torch.randn((8, 1, k, 1) if axis == 2 else (8, 1, 1, k), generator=gen, device=cuda)
+    stride, padding = ups_filter.conv_args(transposed, axis, k)
+    x_lib, w_lib = x.clone().requires_grad_(), w.clone().requires_grad_()
+    x_new, w_new = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y_lib = (F.conv_transpose2d(x_lib, w_lib, stride=stride, groups=8) if transposed
+             else F.conv2d(x_lib, w_lib, padding=padding, groups=8))
+    count = ups_filter.launch_count
+    y_new = ups_filter.filter_1d(x_new, w_new, transposed, axis)
+    assert torch.equal(y_new, y_lib)
+    gy = torch.randn(y_lib.shape, generator=gen, device=cuda)
+    gx_lib, gw_lib = torch.autograd.grad(y_lib, (x_lib, w_lib), gy)
+    gx_new, gw_new = torch.autograd.grad(y_new, (x_new, w_new), gy)
+    assert ups_filter.launch_count == count + 1
+    assert torch.equal(gx_new, gx_lib)
+    err = weight_grad_error(gw_new.reshape(8, k), x, gy, k, transposed, axis)
+    err_lib = weight_grad_error(gw_lib.reshape(8, k), x, gy, k, transposed, axis)
+    print(f"weight gradient vs float64: kernel {err:.3g}, library {err_lib:.3g}")
+    assert err <= 1e-5
+
+
+def test_train_step_launches_the_ups_kernel_24_times(cuda):
+    """One batched training step of the default decoder (7 grids) at B = 2:
+    24 launches (4 filters per x2 level); an eval forward: none; a step
+    that does not train the upsampling: none."""
+    from coolchic_tpu_torch.ops import ups_filter
+    from coolchic_tpu_torch.params import tree_leaves
+    from coolchic_tpu_torch.train.presets import TrainerPhase
+    from coolchic_tpu_torch.train.step import AdamState, train_step, trained_tensors
+
+    cfg = CoolChicConfig(img_size=(64, 96))
+    gen = torch.Generator(cuda).manual_seed(0)
+    params = stack_params([init_coolchic_params(gen, cfg, cuda, "normal") for _ in range(2)])
+    targets = torch.rand(2, 3, 64, 96, generator=gen, device=cuda)
+    lmbdas = torch.tensor([1e-3, 4e-3], device=cuda)
+    for modules, launches in ((("all",), 24), (("arm", "synthesis", "latents"), 0)):
+        phase = TrainerPhase(lr=1e-3, optimized_module=modules)
+        tensors = trained_tensors(params, phase.optimized_module)
+        for t in tensors:
+            t.requires_grad_(True)
+        count = ups_filter.launch_count
+        train_step(params, tensors, AdamState.zeros(tensors), targets, lmbdas, cfg, phase, 1e-3,
+                   0.3, 0.25, gen)
+        torch.cuda.synchronize()
+        assert ups_filter.launch_count == count + launches, modules
+        for t in tree_leaves(params):
+            t.requires_grad_(False)
+    count = ups_filter.launch_count
+    eval_metrics(params, cfg, targets, lmbdas)
+    assert ups_filter.launch_count == count
+
+
+def test_ups_wgrad_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
+    from coolchic_tpu_torch.ops import ups_filter
+
+    x = torch.randn(2, 3, 9, 12, device=cuda)
+    gy = torch.randn(2, 3, 9, 12, device=cuda)
+    with pytest.raises(TypeError):  # float64
+        ups_filter.weight_grad_cuda(x.double(), gy.double(), 7, False, 2)
+    with pytest.raises(ValueError):  # more taps than the kernel's slots
+        ups_filter.weight_grad_cuda(x, gy, ups_filter.MAX_K + 1, False, 2)
+    with pytest.raises(ValueError):  # the output gradient on the host
+        ups_filter.weight_grad_cuda(x, gy.cpu(), 7, False, 2)
+    # A split the kernel refuses (7 tap slots; no column chunk): the launch
+    # fails and the wrapper raises, computing nothing else.
+    count = ups_filter.launch_count
+    ups_filter._launch_args.cache_clear()
+    monkeypatch.setattr(ups_filter, "rows_plan", lambda *a: (7, 1, 9, 1, 12, 1))
+    with pytest.raises(RuntimeError):
+        ups_filter.weight_grad_cuda(x, gy, 7, False, 2)
+    monkeypatch.setattr(ups_filter, "cols_plan", lambda *a: (8, 0, 0, 0, 0, 3))
+    with pytest.raises(RuntimeError):
+        ups_filter.weight_grad_cuda(x, gy, 7, False, 3)
+    ups_filter._launch_args.cache_clear()
+    assert ups_filter.launch_count == count
