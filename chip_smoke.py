@@ -409,19 +409,22 @@ def ups_reset() -> None:
     UPS_WANT["launches"] = 0
 
 
-def check_ups_launches(path: str, more: int = 0) -> dict:
-    """The upsampling kernel's launches since ``ups_reset()``. Raises unless
-    they are those of the training steps counted since then, plus ``more``
-    (steps that ``count_ups_training_steps`` does not see: the hypernet
-    trainer's, another process's), and unless ``phase_ups_wgrad`` held each
-    of their launch geometries to the plain version. Returns the launches
-    and their count by batch size."""
+def check_ups_launches(path: str, more: int = 0, replayed: int = 0) -> dict:
+    """The upsampling kernel's launches since ``ups_reset()``: those the
+    wrapper counted on the host, plus ``replayed``, the launches that CUDA
+    graphs' replays made beyond them (a graphed step reaches the wrapper once,
+    at its capture, whose launches ran in the replay that followed). Raises
+    unless they are those of the training steps counted since then, plus
+    ``more`` (steps that ``count_ups_training_steps`` does not see: the
+    hypernet trainer's, another process's), and unless ``phase_ups_wgrad``
+    held each of their launch geometries to the plain version. Returns the
+    launches and their count by batch size (of the wrapper's calls)."""
     from coolchic_tpu_torch.ops import ups_filter
 
     want = UPS_WANT["launches"] + more
-    if ups_filter.launch_count != want:
-        raise AssertionError(f"{path} launched ups_wgrad {ups_filter.launch_count} times; its "
-                             f"training steps make {want} launches")
+    if ups_filter.launch_count + replayed != want:
+        raise AssertionError(f"{path} launched ups_wgrad {ups_filter.launch_count} + {replayed} "
+                             f"(replayed) times; its training steps make {want} launches")
     unchecked = set(ups_filter.launches_by_geometry) - UPS_CHECKED
     if unchecked:
         raise AssertionError(f"{path} launched ups_wgrad at {len(unchecked)} geometries that no "
@@ -1644,6 +1647,7 @@ def phase_hypernet_train_path() -> int:
     from coolchic_tpu_torch.hypernet import inference
     from coolchic_tpu_torch.metalearning import synthetic_batches
     from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.utils import trace
     from coolchic_tpu_torch.utils.profile_step import profile_hypernet_train
     from coolchic_tpu_torch.utils.types import DecoderConfig
 
@@ -1670,9 +1674,11 @@ def phase_hypernet_train_path() -> int:
     ups_reset()
     card_vs_cpu = hypernet_step_card_vs_cpu(net, state, imgs)
     # Launches of the whole-net steps, which count_ups_training_steps does
-    # not see: one card step here, then those of each train_wholenet call.
+    # not see: one card step here (the first of its graph: eager), then those
+    # of each train_wholenet call, whose replays the wrapper does not see
+    # (its train span counts them).
     ups_per_step = 4 * (cfg.latent_n_grids - 1)
-    ups_steps = {"launches": ups_per_step}
+    ups_steps = {"launches": ups_per_step, "replayed": 0}
     del net, state
 
     common = ["--synthetic", "--device", "cuda", "--disable_wandb", "--patch_size",
@@ -1711,8 +1717,11 @@ def phase_hypernet_train_path() -> int:
             (kw["n_samples"] - kw.get("samples_offset", 0)) // kw["batch_size"], 1)
         t0 = clock()
         best, logs = real_train(net, state, data_iter, eval_imgs, **kw)
+        wall_s = clock() - t0
+        steps = trace.spans("train")[-1].attrs
+        ups_steps["replayed"] += ups_per_step * (steps["graph_replays"] - steps["graph_captures"])
         calls.append({"net": net, "state": state, "eval_imgs": eval_imgs, "kw": kw,
-                      "best": best, "logs": logs, "wall_s": clock() - t0})
+                      "best": best, "logs": logs, "wall_s": wall_s, "steps": steps})
         current["in_loop"] = False
         return best, logs
 
@@ -1750,7 +1759,7 @@ def phase_hypernet_train_path() -> int:
         inference.save_checkpoint = training.save_checkpoint = real_save
     launches = ar.launch_count
     launches_by_batch = check_batch_sizes_seen("the hypernet train path", HT_BATCH_SIZES)
-    check_ups_launches("the hypernet train path", ups_steps["launches"])
+    check_ups_launches("the hypernet train path", ups_steps["launches"], ups_steps["replayed"])
     peak_bytes = torch.cuda.max_memory_allocated()
     n_validations = sum(len(c["logs"]) for c in calls)
     n_match_evals = (HT_MATCH[0] // HT_MATCH[1]) * (1 + 1) + 1
@@ -1783,7 +1792,10 @@ def phase_hypernet_train_path() -> int:
             "samples_per_s": n_steps * HT_BATCH / call["wall_s"],
             "steps_per_s_without_checkpoints": n_steps / (call["wall_s"] - ckpt_s),
             "samples_offset": call["kw"]["samples_offset"],
+            "steps_by_kind": {k: call["steps"][k] for k in training.STEP_COUNTS},
             "validations": [log._asdict() for log in call["logs"]], "eval": ev}
+        if call["steps"]["graph_replays"] + call["steps"]["eager_steps"] != n_steps:
+            raise AssertionError(f"{name}: {n_steps} steps, ran as {per_run[name]['steps_by_kind']}")
     if not per_run["no"]["eval"]["after"]["loss"] < per_run["no"]["eval"]["before"]["loss"]:
         raise AssertionError(f"the NO run did not learn: {per_run['no']['eval']}")
     for name, run in per_run.items():

@@ -27,6 +27,7 @@ gathers them into a state dict.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -217,6 +218,13 @@ class LatentHyperNet(nn.Module):
         return outputs
 
 
+@lru_cache(maxsize=64)
+def _device_resize_weights(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """``resize_weights`` on ``device``, copied there once (a forward then
+    copies nothing from the host, as a CUDA graph's capture requires)."""
+    return resize_weights(in_size, out_size).to(device)
+
+
 def resize_weights(in_size: int, out_size: int) -> torch.Tensor:
     """[out, in] weights of ``jax.image.resize(..., "bicubic")`` along one
     axis (``jax._src.image.scale.compute_weight_mat``): Keys' cubic with
@@ -245,8 +253,8 @@ def upsample_latents(latents: Sequence[torch.Tensor], img_size: Tuple[int, int])
     h, w = img_size
     resized = []
     for y in latents:
-        wy = resize_weights(y.shape[-2], h).to(y.device)
-        wx = resize_weights(y.shape[-1], w).to(y.device)
+        wy = _device_resize_weights(y.shape[-2], h, y.device)
+        wx = _device_resize_weights(y.shape[-1], w, y.device)
         resized.append(wy @ y @ wx.T)
     return torch.cat(resized, dim=1)
 

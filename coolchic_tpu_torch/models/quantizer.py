@@ -19,14 +19,18 @@ QUANTIZER_NOISE_TYPES = ("kumaraswamy", "gaussian", "none")
 QUANTIZER_TYPES = ("softround_alone", "softround", "hardround", "ste", "none", "true_ste")
 
 
-def softround(x: torch.Tensor, t: float) -> torch.Tensor:
-    """floor(x) + tanh(d/t) / (2 tanh(1/2t)) + 1/2, d = x - floor(x) - 1/2."""
+def softround(x: torch.Tensor, t: float | torch.Tensor) -> torch.Tensor:
+    """floor(x) + tanh(d/t) / (2 tanh(1/2t)) + 1/2, d = x - floor(x) - 1/2.
+    ``t`` a number (tanh(1/2t) on the host) or a 0-d tensor (on its device,
+    in its precision, as JAX computes it for a traced temperature)."""
     floor_x = torch.floor(x)
     delta = x - floor_x - 0.5
+    if isinstance(t, torch.Tensor):
+        return floor_x + 0.5 * torch.tanh(delta / t) / torch.tanh(0.5 / t) + 0.5
     return floor_x + 0.5 * torch.tanh(delta / t) / math.tanh(1.0 / (2.0 * t)) + 0.5
 
 
-def kumaraswamy_noise(uniform_noise: torch.Tensor, a: float) -> torch.Tensor:
+def kumaraswamy_noise(uniform_noise: torch.Tensor, a: float | torch.Tensor) -> torch.Tensor:
     """U(0, 1) -> Kumaraswamy(a, b(a)) shifted to (-1/2, 1/2), mode at 1/2."""
     b = (2.0**a * (a - 1.0) + 1.0) / a
     return (1.0 - (1.0 - uniform_noise) ** (1.0 / b)) ** (1.0 / a) - 0.5
@@ -63,8 +67,8 @@ def quantize(
     x: torch.Tensor,
     quantizer_noise_type: str = "kumaraswamy",
     quantizer_type: str = "softround",
-    soft_round_temperature: float = 0.3,
-    noise_parameter: float = 1.0,
+    soft_round_temperature: float | torch.Tensor = 0.3,
+    noise_parameter: float | torch.Tensor = 1.0,
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
@@ -75,7 +79,8 @@ def quantize(
     round(x), backward through softround; ``true_ste`` forward round(x),
     backward identity. n is Gaussian (std ``noise_parameter``) or
     Kumaraswamy (a = ``noise_parameter``), from ``noise`` when given, else
-    drawn with ``generator``.
+    drawn with ``generator``. The temperature and the noise parameter are
+    numbers or 0-d tensors (a CUDA graph's step reads them from the device).
     """
     if quantizer_noise_type not in QUANTIZER_NOISE_TYPES:
         raise ValueError(f"unknown quantizer_noise_type {quantizer_noise_type}")

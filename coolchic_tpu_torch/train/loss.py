@@ -83,7 +83,11 @@ def loss_function(
     rate_bpp = (rate_latent_bits + rate_nn_bits) / n_pixels
     loss = mse + lmbda * rate_bpp
     psnr_db = -10.0 * torch.log10(mse + 1e-10)
-    rate_nn_bpp = torch.as_tensor(rate_nn_bits, dtype=mse.dtype, device=mse.device) / n_pixels
+    if isinstance(rate_nn_bits, (int, float)):  # a fill on the device, not a copy from the host
+        rate_nn = mse.new_full((), float(rate_nn_bits))
+    else:
+        rate_nn = torch.as_tensor(rate_nn_bits, dtype=mse.dtype, device=mse.device)
+    rate_nn_bpp = rate_nn / n_pixels
     return LossOutput(
         loss=loss,
         mse=mse,

@@ -262,13 +262,16 @@ def test_train_wholenet_spans(monkeypatch):
     monkeypatch.setattr(training.cclog, "log", lambda m, step=None: records.append(m))
     mark, logs = _train_run()
     (root,) = _after(mark, "train")
-    assert root.parent is None and root.attrs == {"n_samples": 8, "batch_size": 2}
+    # On the CPU every step runs eagerly (no CUDA graph).
+    assert root.parent is None and root.attrs == {
+        "n_samples": 8, "batch_size": 2, "graph_captures": 0, "graph_replays": 0, "eager_steps": 4}
     names = [k.name for k in trace.children(root)]
     assert names == ["train.data", "train.h2d", "train.step"] * 2 + ["train.validate"] + \
         ["train.data", "train.h2d", "train.step"] * 2 + ["train.validate"]
     assert len(logs) == names.count("train.validate") == len(records) == 2
     # The operator's record: host ms per step since the previous validation,
-    # in checkpoints since then (none here), and of the validation itself.
+    # in checkpoints since then (none here), and of the validation itself;
+    # the steps since then by how they ran.
     steps = [k for k in trace.children(root) if k.name != "train.validate"]
     validations = [k for k in trace.children(root) if k.name == "train.validate"]
     for i, record in enumerate(records):
@@ -277,6 +280,7 @@ def test_train_wholenet_spans(monkeypatch):
             assert record[name + "_ms"] == pytest.approx(1e-6 * sum(ns) / 2)
         assert record["train.checkpoint_ms"] == 0
         assert record["train.validate_ms"] == pytest.approx(1e-6 * validations[i].ns)
+        assert (record["graph_captures"], record["graph_replays"], record["eager_steps"]) == (0, 0, 2)
 
 
 def test_train_wholenet_checkpoint_span(tmp_path, monkeypatch):
