@@ -18,7 +18,7 @@ Phases, one JSON line each:
      on planes 1x1, 5x3, 17x33 (ragged against the kernel's 16-latent
      m-tiles and 64-latent items), 16x24, 37x130 and 512x768; on planes of
      latents up to 3,000 in magnitude (past TF32's exact integers) for the
-     ARMs of ``utils/rate_check.py::LARGE_ARMS`` (n_hidden 0..3), each on
+     ARMs of ``tests/torch_kernel_checks.py::LARGE_ARMS`` (n_hidden 0..3), each on
      every seed of ``LARGE_SEEDS``; then on the 7-grid pyramid of a 512x768
      image (the main path's shapes). Each case is held to two references with
      ``models.arm.rate_tolerance`` (rtol = atol = 1e-4, with one more term
@@ -52,7 +52,8 @@ Phases, one JSON line each:
      batch's one launch must equal, bit for bit, B single-image launches on
      the same rows. Timed by CUDA-graph replay, beside B times the f64
      bound. Every path then fails if it launched the kernel on a batch size
-     not checked here at its shapes.
+     not checked here at its shapes (the smoke's wrapper of
+     ``ops.arm_rate.launch_arm_rate`` tallies the launches by batch size).
      Then the upsampling filters' weight-gradient kernel
      (``ops/ups_filter.py``): the 24 weight gradients of one backward of the
      default decoder's upsampling cascade, each as the kernel receives it,
@@ -70,7 +71,9 @@ Phases, one JSON line each:
      False)); per level (4 calls) and per step (24). Every path then fails
      unless it launched the kernel 4 times per x2 level for each training
      step that trains the upsampling and at no other time (eval forwards,
-     latent-only phases), and only at launch geometries checked here.
+     latent-only phases), and only at launch geometries checked here (the
+     smoke's wrapper of ``ops.ups_filter.weight_grad_cuda`` tallies the
+     launches by the geometry and plan arrays they were given).
   3. main path: encode a synthetic 512x768 RGB image (numpy seed 0) with the
      default DecoderConfig (arm 24,2; 40-wide synthesis; 7 grids) and the
      c3x recipe of preset_cfg/c3x.yaml, iteration counts cut (printed),
@@ -109,9 +112,7 @@ Phases, one JSON line each:
      20 % of the estimated latent rate; each smaller row's masked rate and
      loss equal (1e-5 relative) those of the same parameters cropped to the
      true size and run through the unbatched forward. Prints image-steps/s,
-     the stage seconds, the peak memory and, from
-     ``utils/profile_step.py``, kernels, device ms and busy share of a
-     batched step at B = 1 and B = 8.
+     the stage seconds and the peak memory.
   6. video path: a synthetic 3-frame 1920x1080 4:2:0 8-bit sequence (a
      smooth texture moving 3 px right and 2 px down per frame, plus noise;
      numpy seed 0) written to ``smoke_out/synthetic_1920x1080_420_8b.yuv``
@@ -129,8 +130,7 @@ Phases, one JSON line each:
      to the CPU's at the main path's tolerance, and for P / B the integer
      warp of one synthesis output giving equal levels on both. Prints per
      frame the stage seconds, train steps/s, ``write_s`` and bytes; the
-     decode seconds, the peak memory, and from ``utils/profile_step.py`` a
-     1080p step and eval forward of an I, a P and a B frame.
+     decode seconds and the peak memory.
   7. hypernet path: ``hypernet.DeltaWholeNet`` with a resnet18 backbone
      at the widths of the JAX package's ``HyperNetConfig`` (64 hidden
      channels, synthesis and ARM heads 1024 x 3, upsampling head 256 x 3,
@@ -152,8 +152,7 @@ Phases, one JSON line each:
      finetuned loss at most the one-shot loss). Every launch at a batch size
      the ``arm_rate_batch`` checks held at 512x768. Prints the prediction's
      device ms at B = 1 and 8, the one-shot forward's wall ms, the seconds of
-     each stage and the peak memory; then, from ``utils/profile_step.py``,
-     the prediction's device time by kernel and by operator at B = 1 and 8.
+     each stage and the peak memory.
   8. hypernet training path: the trainer's CLI (``hypernet_train.main``,
      ``--synthetic --device cuda``) at the JAX CLI's no-config default, full
      width: resnet18 ``DeltaWholeNet`` (21.8 M parameters), the default
@@ -172,9 +171,7 @@ Phases, one JSON line each:
      eval of ``iterations_to_match`` (B = 1) launched the kernel; metrics
      finite. Prints per run steps/s and samples/s (wall, synchronised), the
      eval metrics before and after, every checkpoint write's seconds,
-     ``evaluate_wholenet`` ms at B = 8, the peak memory and, from
-     ``utils/profile_step.py``, a train step of each whole net at B = 8 by
-     kernel and by operator, and its forward alone.
+     ``evaluate_wholenet`` ms at B = 8 and the peak memory.
   9. multi-GPU and tools path (``parallel/`` at world size 1, the tools):
      ``parallel.launch(encode_batch_sharded, 1, "cuda", ...)`` on 4 of the
      batch path's images (the default DecoderConfig, full width; the c3x
@@ -203,9 +200,10 @@ Phases, one JSON line each:
      ``video_encoder.pkl`` (1080p 4:2:0): the loss falls.
      ``detailed_eval_metrics`` of the main path's trained decoder: its loss
      and total rate equal ``eval_metrics``' (relative 1e-6), the per-grid
-     rates sum to the latent rate. The kernel launches of the ranks count in
-     this process (``launch`` adds them); every launch at a batch size held
-     by the ``arm_rate_batch`` checks at its pyramid.
+     rates sum to the latent rate. Each rank runs under the smoke's launch
+     tallies and returns them with its result (``tallied_launch``), so that
+     the ranks' launches count in this process; every launch at a batch size
+     held by the ``arm_rate_batch`` checks at its pyramid.
 Then a ``kernels`` JSON line, the card's name and power limit, and the
 final ``{"ok": true, "device": ...}`` line. Any failure raises (exit != 0).
 
@@ -221,6 +219,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -249,7 +248,6 @@ BATCH_LMBDAS = (1e-3,) * 4 + (4e-3,) * 4
 BATCH_VALID_HW = {3: (480, 720), 7: (512, 704)}  # image index -> true (H, W)
 BATCH_WARMUP_MAX_ITR = 30
 BATCH_PHASE_MAX_ITR = (200, 40, 30)
-BATCH_PROFILE_STEPS = 1  # iterations of each profiled step and eval forward at B = 1 and 8
 
 # The video path: a 3-frame 1920x1080 4:2:0 GOP (I, P at display 2, B at
 # display 1), one frame after another; each frame's warm-up trains 5, then 2
@@ -262,7 +260,6 @@ VIDEO_LMBDA = 1e-3
 VIDEO_WARMUP_MAX_ITR = 20
 VIDEO_PHASE_MAX_ITR = (120, 24, 16)
 VIDEO_SHIFT = (3, 2)  # pixels the texture moves per frame (x, y)
-VIDEO_PROFILE_STEPS = 1  # the profiler's processing of a 1080p P step's 16,219 kernels is slow
 
 # The hypernet path: DeltaWholeNet (resnet18, the HyperNetConfig widths) on
 # 8 images of the batch path's size, seeds 0-7; streams for images 0 and 1.
@@ -285,7 +282,6 @@ HT_CKPT_FREQ = {"no": 320, "delta": 160, "resume": 80}  # samples between checkp
 HT_CPU_BATCH = 2  # the one-step check of the card against the CPU
 HT_CPU_LR = 1e-4
 HT_MATCH = (200, 50)  # iterations_to_match's max_itr, check_every
-HT_PROFILE_STEPS = 1
 
 # The multi-GPU and tools path: the sharded encode of 4 batch-path images
 # (512x768, seeds 0-3, the default DecoderConfig) at world size 1 on NCCL;
@@ -362,33 +358,129 @@ def host_ms(fn, n: int = 200) -> float:
     return 1e3 * statistics.median(times)
 
 
+# The smoke's own tallies of the two kernels' launches, kept by the wrappers
+# that install_launch_tallies() puts around the port's launch functions, in
+# this process and in each rank the smoke starts (tallied_launch): the ARM
+# kernel's launches by batch size, and the upsampling weight-gradient
+# kernel's launches by the arguments it received (keyed_weight_grad). Each
+# count is the wrapped module's launch_count, read before and after the call.
+TALLY = {"arm_by_batch": Counter(), "ups_by_geometry": Counter()}
+
+
+def keyed_weight_grad(weight_grad_cuda, x, gy, k, transposed, axis):
+    """``weight_grad_cuda(x, gy, k, transposed, axis)`` and its launch key:
+    the geometry and plan arrays that ``ops.ups_filter._launch_args`` gave
+    that launch (read by wrapping that name for the call), which is what the
+    kernel receives besides its pointers. The key by which a path's launch
+    is matched to a checked one."""
+    from coolchic_tpu_torch.ops import ups_filter
+
+    launch_args, keys = ups_filter._launch_args, []
+
+    def recorded(*args):
+        geom, plan, out_shape = launch_args(*args)
+        keys.append((tuple(geom), tuple(plan)))
+        return geom, plan, out_shape
+
+    ups_filter._launch_args = recorded
+    try:
+        out = weight_grad_cuda(x, gy, k, transposed, axis)
+    finally:
+        ups_filter._launch_args = launch_args
+    return out, keys[-1]
+
+
+def install_launch_tallies() -> None:
+    """Wrap ``ops.arm_rate.launch_arm_rate`` and
+    ``ops.ups_filter.weight_grad_cuda`` so that the launches each call makes
+    (its module's ``launch_count`` after, less before) add to ``TALLY``. Both
+    are looked up in their modules at each call."""
+    from coolchic_tpu_torch.ops import arm_rate as ar
+    from coolchic_tpu_torch.ops import ups_filter
+
+    launch_arm_rate, weight_grad_cuda = ar.launch_arm_rate, ups_filter.weight_grad_cuda
+
+    def tallied_arm_rate(latents, rate, layers, table, dim_arm, n_hidden, n_images=1):
+        before = ar.launch_count
+        launch_arm_rate(latents, rate, layers, table, dim_arm, n_hidden, n_images)
+        TALLY["arm_by_batch"][n_images] += ar.launch_count - before
+
+    def tallied_weight_grad(x, gy, k, transposed, axis):
+        before = ups_filter.launch_count
+        out, key = keyed_weight_grad(weight_grad_cuda, x, gy, k, transposed, axis)
+        TALLY["ups_by_geometry"][key] += ups_filter.launch_count - before
+        return out
+
+    ar.launch_arm_rate, ups_filter.weight_grad_cuda = tallied_arm_rate, tallied_weight_grad
+
+
+def tallied_rank(fn, *args, mesh, **kwargs):
+    """What a rank that ``tallied_launch`` starts runs: ``fn`` under the
+    launch tallies; returns its result and every rank's tallies."""
+    import torch.distributed as dist
+
+    install_launch_tallies()
+    out = fn(*args, mesh=mesh, **kwargs)
+    tallies = [None] * mesh.world_size
+    dist.all_gather_object(tallies, {k: dict(v) for k, v in TALLY.items()}, group=mesh.group)
+    return out, tallies
+
+
+def tallied_launch(fn, world_size, device, *args, **kwargs):
+    """``parallel.launch(fn, ...)`` with each rank under the launch tallies
+    (``tallied_rank``): adds the ranks' tallies to this process's and
+    returns rank 0's result. A rank on this process's card gets the memory
+    that this process's caching allocator holds unused (without, the
+    trainer's rank ran out of the card's memory after the earlier paths)."""
+    import gc
+
+    import torch
+
+    from coolchic_tpu_torch.parallel import mesh as parallel_mesh
+
+    if torch.device(device).type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+    out, tallies = parallel_mesh.launch(tallied_rank, world_size, device, fn, *args, **kwargs)
+    for tally in tallies:
+        for key, counts in tally.items():
+            TALLY[key].update(counts)
+    return out
+
+
+def arm_reset() -> None:
+    TALLY["arm_by_batch"].clear()
+
+
+def arm_launches() -> int:
+    """The ARM kernel's launches since ``arm_reset()``."""
+    return sum(TALLY["arm_by_batch"].values())
+
+
 def check_batch_sizes_seen(path: str, checked=BATCH_SIZES) -> dict:
     """The kernel's launches of the path just driven, by batch size; raises
     if one of the sizes was not held to the plain version at that path's
     shapes by the ``arm_rate_batch`` checks (``checked``)."""
-    from coolchic_tpu_torch.ops import arm_rate as ar
-
-    seen = dict(sorted(ar.launches_by_batch.items()))
+    seen = dict(sorted(TALLY["arm_by_batch"].items()))
     if not set(seen) <= set(checked):
         raise AssertionError(f"{path} launched the kernel on batches of {sorted(seen)} images; "
                              f"checked against the plain version: {checked}")
     return {str(b): n for b, n in seen.items()}
 
 
-# Launch geometries of the upsampling's weight-gradient kernel (the keys of
-# ops/ups_filter.py's launches_by_geometry) that phase_ups_wgrad held to the
-# plain version, and the launches that the training steps counted since the
-# last ups_reset() make.
+# Launch keys of the upsampling's weight-gradient kernel (keyed_weight_grad)
+# that phase_ups_wgrad held to the plain version, and the launches that the
+# training steps counted since the last ups_reset() make.
 UPS_CHECKED = set()
 UPS_WANT = {"launches": 0}
 UPS_BY_PATH = {}  # what check_ups_launches found, by path
 
 
 def count_ups_training_steps() -> None:
-    """Wrap ``train/step.py::train_step`` (each step of ``run_phase_batch``
-    and of the profiler calls it) so that a step adds to ``UPS_WANT`` the
-    kernel launches it makes: 4 per x2 level (the x2 passes along H and W,
-    the pre-concat filter's two) when it trains the upsampling, else none."""
+    """Wrap ``train/step.py::train_step`` (each step of ``run_phase_batch``)
+    so that a step adds to ``UPS_WANT`` the kernel launches it makes: 4 per
+    x2 level (the x2 passes along H and W, the pre-concat filter's two) when
+    it trains the upsampling, else none."""
     from coolchic_tpu_torch.train import step
 
     real = step.train_step
@@ -402,16 +494,13 @@ def count_ups_training_steps() -> None:
 
 
 def ups_reset() -> None:
-    from coolchic_tpu_torch.ops import ups_filter
-
-    ups_filter.launch_count = 0
-    ups_filter.launches_by_geometry.clear()
+    TALLY["ups_by_geometry"].clear()
     UPS_WANT["launches"] = 0
 
 
 def check_ups_launches(path: str, more: int = 0, replayed: int = 0) -> dict:
     """The upsampling kernel's launches since ``ups_reset()``: those the
-    wrapper counted on the host, plus ``replayed``, the launches that CUDA
+    tally counted on the host, plus ``replayed``, the launches that CUDA
     graphs' replays made beyond them (a graphed step reaches the wrapper once,
     at its capture, whose launches ran in the replay that followed). Raises
     unless they are those of the training steps counted since then, plus
@@ -419,19 +508,19 @@ def check_ups_launches(path: str, more: int = 0, replayed: int = 0) -> dict:
     hypernet trainer's, another process's), and unless ``phase_ups_wgrad``
     held each of their launch geometries to the plain version. Returns the
     launches and their count by batch size (of the wrapper's calls)."""
-    from coolchic_tpu_torch.ops import ups_filter
-
+    by_geometry = TALLY["ups_by_geometry"]
+    counted = sum(by_geometry.values())
     want = UPS_WANT["launches"] + more
-    if ups_filter.launch_count + replayed != want:
-        raise AssertionError(f"{path} launched ups_wgrad {ups_filter.launch_count} + {replayed} "
-                             f"(replayed) times; its training steps make {want} launches")
-    unchecked = set(ups_filter.launches_by_geometry) - UPS_CHECKED
+    if counted + replayed != want:
+        raise AssertionError(f"{path} launched ups_wgrad {counted} + {replayed} (replayed) "
+                             f"times; its training steps make {want} launches")
+    unchecked = set(by_geometry) - UPS_CHECKED
     if unchecked:
         raise AssertionError(f"{path} launched ups_wgrad at {len(unchecked)} geometries that no "
                              f"check held to the plain version, e.g. {sorted(map(str, unchecked))[0]}")
     by_batch = {}
-    for geometry, n in ups_filter.launches_by_geometry.items():
-        b = geometry[3][1]
+    for (_, plan), n in by_geometry.items():
+        b = plan[5]  # ups_filter._launch_args' plan: (axis, stride, k, pad, C, B, ...)
         by_batch[b] = by_batch.get(b, 0) + n
     UPS_BY_PATH[path] = {"launches": want,
                          "by_batch": {str(b): n for b, n in sorted(by_batch.items())}}
@@ -478,7 +567,7 @@ def arm_case_params(dim_arm, n_hidden, gen):
 
 
 def summary(res) -> dict:
-    """The numbers of a ``rate_check.check_rate`` result that a line reports."""
+    """The numbers of a ``torch_kernel_checks.check_rate`` result that a line reports."""
     return {
         "max_abs_err": res["vs_f32"]["max_abs_err"],
         "max_abs_err_f64": res["vs_f64"]["max_abs_err"],
@@ -492,7 +581,7 @@ def compare(got, latents, params, dim_arm) -> dict:
     """The kernel's rate against the float64 and the cuBLAS f32 plain rates;
     raises unless both are within rate_tolerance with no latent beyond 1e-4
     that is neither steep nor tail."""
-    from coolchic_tpu_torch.utils.rate_check import check_rate, holds
+    from torch_kernel_checks import check_rate, holds
 
     res = check_rate(got, latents, params, dim_arm)
     out = summary(res)
@@ -509,7 +598,7 @@ def large_latent_checks(dim_arm, n_hidden) -> dict:
     beyond 1e-4 of float64 over all seeds."""
     from coolchic_tpu_torch.ops import arm_rate as ar
     from coolchic_tpu_torch.params import from_numpy_pytree
-    from coolchic_tpu_torch.utils.rate_check import (
+    from torch_kernel_checks import (
         LARGE_PLANES, LARGE_SEEDS, check_rate, holds, large_latent_case,
     )
 
@@ -615,7 +704,7 @@ def phase_kernel_checks() -> dict:
     from coolchic_tpu_torch.models.arm import arm_rate_plain
     from coolchic_tpu_torch.models.config import CoolChicConfig
     from coolchic_tpu_torch.ops import arm_rate as ar
-    from coolchic_tpu_torch.utils.rate_check import LARGE_ARMS
+    from torch_kernel_checks import LARGE_ARMS
 
     for dim_arm, n_hidden in ARM_CASES:
         gen = torch.Generator("cuda").manual_seed(10 * dim_arm + n_hidden)
@@ -708,7 +797,7 @@ def phase_ups_wgrad() -> dict:
     import torch
 
     from coolchic_tpu_torch.ops import ups_filter
-    from coolchic_tpu_torch.utils.ups_check import cascade_weight_grads, weight_grad_error
+    from torch_kernel_checks import cascade_weight_grads, weight_grad_error
 
     timed = {((IMG_H, IMG_W), 8), ((IMG_H, IMG_W), 1), ((HT_PATCH, HT_PATCH), HT_BATCH),
              ((VIDEO_H, VIDEO_W), 1)}
@@ -721,14 +810,13 @@ def phase_ups_wgrad() -> dict:
         if len(calls) != 24:
             raise AssertionError(f"{len(calls)} weight gradients in one backward, not 24")
         for x, gy, k, transposed, axis in calls:
-            ups_filter.launches_by_geometry.clear()
-            got = ups_filter.weight_grad_cuda(x, gy, k, transposed, axis)
+            got, key = keyed_weight_grad(ups_filter.weight_grad_cuda, x, gy, k, transposed, axis)
             err = weight_grad_error(got, x, gy, k, transposed, axis)
             if err > 1e-5 or not torch.equal(ups_filter.weight_grad_cuda(x, gy, k, transposed,
                                                                           axis), got):
                 raise AssertionError(f"ups_wgrad kernel off its plain version ({err}) or not "
                                      f"repeatable at {tuple(x.shape)}, {tuple(gy.shape)}, k {k}")
-            UPS_CHECKED.update(ups_filter.launches_by_geometry)
+            UPS_CHECKED.add(key)
             max_err = max(max_err, err)
         if (img_size, n_images) in timed:
             out[f"{img_size[0]}x{img_size[1]}_b{n_images}"] = ups_wgrad_times(
@@ -747,7 +835,7 @@ def ups_wgrad_times(img_size, n_images: int, calls) -> dict:
     import torch
 
     from coolchic_tpu_torch.ops import ups_filter
-    from coolchic_tpu_torch.utils.ups_check import weight_grad_error
+    from torch_kernel_checks import weight_grad_error
 
     # Level i (0: the coarsest x2 step) holds the i-th smallest call of each kind.
     kind_of = {id(c): ("x2_" if c[3] else "preconcat_") + "HW"[c[4] - 2] for c in calls}
@@ -861,11 +949,10 @@ def phase_main_path():
                         dec_cfg=dec)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ar.launch_count = 0
-    ar.launches_by_batch.clear()
+    arm_reset()
     ups_reset()
     run = encode_one_run(run_cfg, seed=0, device="cuda")
-    launches = ar.launch_count
+    launches = arm_launches()
     launches_by_batch = check_batch_sizes_seen("the main path")
     ups = check_ups_launches("the main path")
     stats = run.result.stats
@@ -1054,7 +1141,6 @@ def phase_batch_path(single_steps_per_s: float) -> int:
     from coolchic_tpu_torch.train.encode import encode_frame_batch
     from coolchic_tpu_torch.train.loss import loss_function
     from coolchic_tpu_torch.train.step import eval_metrics
-    from coolchic_tpu_torch.utils.profile_step import profile_batch
     from coolchic_tpu_torch.utils.types import DecoderConfig
 
     n_images = len(BATCH_LMBDAS)
@@ -1076,13 +1162,12 @@ def phase_batch_path(single_steps_per_s: float) -> int:
     valid_hws = torch.tensor(sizes, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ar.launch_count = 0
-    ar.launches_by_batch.clear()
+    arm_reset()
     ups_reset()
     result, infos = encode_frame_batch(
         targets, BATCH_LMBDAS, cfg, enc.recipe, seeds=list(range(n_images)),
         valid_hws=valid_hws, with_quant_info=True)
-    launches = ar.launch_count
+    launches = arm_launches()
     launches_by_batch = check_batch_sizes_seen("the batch path")
     check_ups_launches("the batch path")
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -1180,13 +1265,6 @@ def phase_batch_path(single_steps_per_s: float) -> int:
         "launches_per_batched_eval_forward": launches_per_forward,
         "max_memory_allocated_bytes": peak_bytes,
     })
-    t0 = time.perf_counter()
-    profiles = {b: profile_batch(b, steps=BATCH_PROFILE_STEPS) for b in (1, n_images)}
-    emit({"phase": "batch_step_profile", "seconds": time.perf_counter() - t0, **{
-        f"{what}_b{b}": {k: lines[what][k] for k in (
-            "wall_ms", "device_ms_per_iter", "kernels_per_iter", "device_busy_share",
-            "profile_complete", "max_memory_allocated_bytes")}
-        for b, lines in profiles.items() for what in lines}})
     return launches
 
 
@@ -1234,7 +1312,6 @@ def phase_video_path() -> int:
     from coolchic_tpu_torch.ops import arm_rate as ar
     from coolchic_tpu_torch.params import from_numpy_pytree
     from coolchic_tpu_torch.train.step import eval_metrics
-    from coolchic_tpu_torch.utils.profile_step import profile_batch
     from coolchic_tpu_torch.utils.types import DecoderConfig, RunConfig
     from coolchic_tpu_torch.video.intercoding import inter_levels
 
@@ -1263,13 +1340,12 @@ def phase_video_path() -> int:
                         enc_cfg=enc, dec_cfg=dec)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ar.launch_count = 0
-    ar.launches_by_batch.clear()
+    arm_reset()
     ups_reset()
     t0 = time.perf_counter()
     run = encode_one_run(run_cfg, seed=0, device="cuda")
     encode_s = time.perf_counter() - t0
-    launches = ar.launch_count
+    launches = arm_launches()
     launches_by_batch = check_batch_sizes_seen("the video path", VIDEO_BATCH_SIZES)
     check_ups_launches("the video path")
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -1364,15 +1440,6 @@ def phase_video_path() -> int:
           "arm_rate_launches_by_batch": launches_by_batch,
           "launches_per_eval_forward": launches_per_forward,
           "max_memory_allocated_bytes": peak_bytes})
-    t0 = time.perf_counter()
-    profiles = {ft: profile_batch(1, ft, (VIDEO_H, VIDEO_W), VIDEO_PROFILE_STEPS)
-                for ft in ("I", "P", "B")}
-    emit({"phase": "video_step_profile", "steps": VIDEO_PROFILE_STEPS,
-          "seconds": time.perf_counter() - t0, **{
-        f"{what}_{ft}": {k: lines[what][k] for k in (
-            "wall_ms", "device_ms_per_iter", "kernels_per_iter", "device_busy_share",
-            "profile_complete", "max_memory_allocated_bytes")}
-        for ft, lines in profiles.items() for what in lines}})
     return launches
 
 
@@ -1397,10 +1464,8 @@ def phase_hypernet_path(trained_params) -> int:
     )
     from coolchic_tpu_torch.models.arm import arm_rate_plain, rate_tolerance
     from coolchic_tpu_torch.models.coolchic import coolchic_forward_latents
-    from coolchic_tpu_torch.ops import arm_rate as ar
     from coolchic_tpu_torch.params import from_numpy_pytree, tree_leaves, tree_map
     from coolchic_tpu_torch.train.step import eval_metrics
-    from coolchic_tpu_torch.utils.profile_step import profile_hypernet
     from coolchic_tpu_torch.utils.types import DecoderConfig
 
     def clock() -> float:
@@ -1437,8 +1502,7 @@ def phase_hypernet_path(trained_params) -> int:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ar.launch_count = 0
-    ar.launches_by_batch.clear()
+    arm_reset()
     ups_reset()
 
     # 1. The one-shot eval forward of 8 predicted decoders: one launch at B = 8.
@@ -1446,8 +1510,8 @@ def phase_hypernet_path(trained_params) -> int:
     with torch.no_grad():
         decoded, rate = net.forward(state, imgs, training=False)
     forward_wall_ms = 1e3 * (clock() - t0)
-    if dict(ar.launches_by_batch) != {HN_IMAGES: 1}:
-        raise AssertionError(f"the one-shot forward launched {dict(ar.launches_by_batch)}")
+    if dict(TALLY["arm_by_batch"]) != {HN_IMAGES: 1}:
+        raise AssertionError(f"the one-shot forward launched {dict(TALLY['arm_by_batch'])}")
     if tuple(decoded.shape) != (HN_IMAGES, 3, IMG_H, IMG_W) or not torch.isfinite(decoded).all() \
             or not torch.isfinite(rate).all():
         raise AssertionError("the one-shot forward's outputs are not finite or mis-shaped")
@@ -1541,16 +1605,10 @@ def phase_hypernet_path(trained_params) -> int:
     if not logs.loss <= m0.loss.item():
         raise AssertionError(f"finetuned loss {logs.loss} > one-shot loss {m0.loss.item()}")
 
-    launches = ar.launch_count
+    launches = arm_launches()
     launches_by_batch = check_batch_sizes_seen("the hypernet path")
     check_ups_launches("the hypernet path")
     peak_bytes = torch.cuda.max_memory_allocated()
-    t0 = time.perf_counter()
-    profiles = {b: profile_hypernet(b, (IMG_H, IMG_W), steps=3) for b in (1, HN_IMAGES)}
-    emit({"phase": "hypernet_predict_profile", "seconds": time.perf_counter() - t0, **{
-        f"b{b}": {k: line[k] for k in ("wall_ms", "device_ms_per_iter", "kernels_per_iter",
-                                       "device_busy_share", "top_ops")}
-        for b, line in profiles.items()}})
     emit({
         "phase": "hypernet_path",
         "launches": launches, "arm_rate_launches_by_batch": launches_by_batch,
@@ -1646,9 +1704,7 @@ def phase_hypernet_train_path() -> int:
     from coolchic_tpu_torch.hypernet import DeltaWholeNet, training
     from coolchic_tpu_torch.hypernet import inference
     from coolchic_tpu_torch.metalearning import synthetic_batches
-    from coolchic_tpu_torch.ops import arm_rate as ar
     from coolchic_tpu_torch.utils import trace
-    from coolchic_tpu_torch.utils.profile_step import profile_hypernet_train
     from coolchic_tpu_torch.utils.types import DecoderConfig
 
     def clock() -> float:
@@ -1733,8 +1789,7 @@ def phase_hypernet_train_path() -> int:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ar.launch_count = 0
-    ar.launches_by_batch.clear()
+    arm_reset()
     hn.train_wholenet = spy_train
     inference.save_checkpoint = training.save_checkpoint = spy_save
     resume_from = None
@@ -1757,7 +1812,7 @@ def phase_hypernet_train_path() -> int:
     finally:
         hn.train_wholenet = real_train
         inference.save_checkpoint = training.save_checkpoint = real_save
-    launches = ar.launch_count
+    launches = arm_launches()
     launches_by_batch = check_batch_sizes_seen("the hypernet train path", HT_BATCH_SIZES)
     check_ups_launches("the hypernet train path", ups_steps["launches"], ups_steps["replayed"])
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -1812,17 +1867,6 @@ def phase_hypernet_train_path() -> int:
         t0 = clock()
         training.evaluate_wholenet(call["net"], call["best"], call["eval_imgs"], 1e-3)
         eval_ms.append(1e3 * (clock() - t0))
-    t0 = time.perf_counter()
-    profiles = {m: profile_hypernet_train(HT_BATCH, (HT_PATCH, HT_PATCH), HT_PROFILE_STEPS, m)
-                for m in ("no", "delta", "small")}
-    emit({"phase": "hypernet_train_step_profile", "seconds": time.perf_counter() - t0, **{
-        m: {k: line[k] for k in ("hypernet_params", "wall_ms", "device_ms_per_iter",
-                                 "kernels_per_iter", "device_busy_share", "top", "top_ops",
-                                 "forward", "max_memory_allocated_bytes")}
-        for m, line in profiles.items()}})
-    for name, run in per_run.items():
-        profiled = {"resume": "delta"}.get(name, name)
-        run["device_ms_per_step_b8"] = profiles[profiled]["device_ms_per_iter"]
     emit({
         "phase": "hypernet_train_path",
         "launches": launches, "arm_rate_launches_by_batch": launches_by_batch,
@@ -1838,10 +1882,10 @@ def phase_hypernet_train_path() -> int:
 
 
 def sharded_encode_rank(t_launch: float, *args, mesh, **kwargs):
-    """What the rank of the sharded encode runs (``parallel.launch`` calls it
-    with ``mesh``): the first NCCL collective (the communicator's creation),
-    then ``encode_batch_sharded``; returns its result and the rank's
-    seconds."""
+    """What the rank of the sharded encode runs (``tallied_launch`` starts
+    it, ``parallel.launch`` gives it ``mesh``): the first NCCL collective
+    (the communicator's creation), then ``encode_batch_sharded``; returns
+    its result and the rank's seconds."""
     import torch
     import torch.distributed as dist
 
@@ -1866,22 +1910,19 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
     ``detailed_eval_metrics`` (see the module docstring, item 9). Returns the
     kernel launches of the phase, its ranks' included. Raises on any miss."""
     import shutil
-    from collections import Counter
 
     import numpy as np
     import torch
 
-    from coolchic_tpu_torch import encode_simpler, hypernet_train, retrain_latents
+    from coolchic_tpu_torch import encode_simpler, hypernet_train, parallel, retrain_latents
     from coolchic_tpu_torch.bitstream import decode_bitstream
     from coolchic_tpu_torch.hypernet import NOWholeNet
     from coolchic_tpu_torch.hypernet.inference import load_checkpoint
     from coolchic_tpu_torch.hypernet.training import evaluate_wholenet
     from coolchic_tpu_torch.metalearning import synthetic_batches
-    from coolchic_tpu_torch.ops import arm_rate as ar
-    from coolchic_tpu_torch.ops import ups_filter
-    from coolchic_tpu_torch.parallel import launch
     from coolchic_tpu_torch.train.encode import encode_frame_batch
     from coolchic_tpu_torch.train.step import detailed_eval_metrics, eval_metrics
+    from coolchic_tpu_torch.utils import trace
     from coolchic_tpu_torch.utils.types import DecoderConfig
 
     def clock() -> float:
@@ -1892,7 +1933,7 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
 
     def sizes_of(step: str, before: Counter, checked) -> None:
         """The launches of ``step`` by batch size, each held by the checks."""
-        delta = {b: n - before.get(b, 0) for b, n in ar.launches_by_batch.items()
+        delta = {b: n - before.get(b, 0) for b, n in TALLY["arm_by_batch"].items()
                  if n > before.get(b, 0)}
         if not set(delta) <= set(checked):
             raise AssertionError(f"{step} launched the kernel on batches of {sorted(delta)}; "
@@ -1919,8 +1960,7 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
         "retrain_latents": {"init": "zeros", "n_itr": MG_RETRAIN_ITR, "frame": 0}})
 
     torch.cuda.synchronize()
-    ar.launch_count = 0
-    ar.launches_by_batch.clear()
+    arm_reset()
     ups_reset()
 
     # --- the sharded encode, one rank on NCCL, and its reference here, both
@@ -1929,16 +1969,17 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
     # so the two runs agree within a tolerance, not bit for bit.
     torch.backends.cudnn.deterministic = True
     try:
-        before = Counter(ar.launches_by_batch)
+        before = Counter(TALLY["arm_by_batch"])
         t0 = clock()
-        (res, infos), rank = launch(sharded_encode_rank, 1, "cuda", time.time(), targets,
-                                    MG_LMBDAS, batch_cfg, enc.recipe, seeds,
-                                    with_quant_info=True)
+        (res, infos), rank = tallied_launch(sharded_encode_rank, 1, "cuda", time.time(),
+                                            targets, MG_LMBDAS, batch_cfg, enc.recipe, seeds,
+                                            with_quant_info=True)
         sharded_s = clock() - t0
-        sharded_launches = ar.launch_count
+        sharded_launches = arm_launches()
         sizes_of("sharded_encode", before, BATCH_SIZES)
-        ups_sharded = ups_filter.launch_count  # the rank's, which run the reference's steps
-        before = Counter(ar.launches_by_batch)
+        # The rank's, whose steps are the reference's.
+        ups_sharded = sum(TALLY["ups_by_geometry"].values())
+        before = Counter(TALLY["arm_by_batch"])
         t0 = clock()
         want, want_infos = encode_frame_batch(targets.cuda(), MG_LMBDAS, batch_cfg, enc.recipe,
                                               seeds, with_quant_info=True)
@@ -1981,26 +2022,40 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
     eval_imgs = torch.tensor(next(synthetic_batches(HT_BATCH, (HT_PATCH, HT_PATCH), seed=999)),
                              device="cuda")
     net = NOWholeNet(DecoderConfig().to_coolchic_config((HT_PATCH, HT_PATCH)))
+    ups_per_step = 4 * (batch_cfg.latent_n_grids - 1)
     dp = {}
-    for n in (0, 1):
-        wd = root / f"hnet_dp{n}"
-        before = Counter(ar.launches_by_batch)
-        t0 = clock()
-        if hypernet_train.main(common + ["--workdir", str(wd), "--data_parallel", str(n)]) != 0:
-            raise AssertionError(f"hypernet_train --data_parallel {n} returned non-zero")
-        wall = clock() - t0
-        sizes_of(f"hypernet_train_dp{n}", before, HT_BATCH_SIZES)
-        best = load_checkpoint(wd / f"samples_{MG_HT_SAMPLES}.pkl", device="cuda")
-        m = {k: float(v) for k, v in evaluate_wholenet(net, best, eval_imgs, 1e-3).items()}
-        dp[n] = {"wall_s": wall, "samples_per_s": MG_HT_SAMPLES / wall, "eval": m,
-                 "checkpoints": sorted(p.name for p in wd.iterdir())}
+    real_launch = parallel.launch
+    # The CLI's rank (--data_parallel 1) under the tallies. This holds only
+    # because hypernet_train.main imports parallel.launch when it is called;
+    # should that change, the rank's launches go uncounted and the ups count
+    # below falls short.
+    parallel.launch = tallied_launch
+    try:
+        for n in (0, 1):
+            wd = root / f"hnet_dp{n}"
+            before = Counter(TALLY["arm_by_batch"])
+            t0 = clock()
+            if hypernet_train.main(common + ["--workdir", str(wd), "--data_parallel",
+                                             str(n)]) != 0:
+                raise AssertionError(f"hypernet_train --data_parallel {n} returned non-zero")
+            wall = clock() - t0
+            sizes_of(f"hypernet_train_dp{n}", before, HT_BATCH_SIZES)
+            if n == 0:  # one device: its steps are CUDA graphs (see check_ups_launches)
+                steps = trace.spans("train")[-1].attrs
+                ups_replayed = ups_per_step * (steps["graph_replays"] - steps["graph_captures"])
+            best = load_checkpoint(wd / f"samples_{MG_HT_SAMPLES}.pkl", device="cuda")
+            m = {k: float(v) for k, v in evaluate_wholenet(net, best, eval_imgs, 1e-3).items()}
+            dp[n] = {"wall_s": wall, "samples_per_s": MG_HT_SAMPLES / wall, "eval": m,
+                     "checkpoints": sorted(p.name for p in wd.iterdir())}
+    finally:
+        parallel.launch = real_launch
     rel = abs(dp[1]["eval"]["loss"] - dp[0]["eval"]["loss"]) / dp[0]["eval"]["loss"]
     if not rel <= 1e-4 or dp[1]["checkpoints"] != dp[0]["checkpoints"]:
         raise AssertionError(f"--data_parallel 1 vs 0: eval loss {rel} apart, {dp}")
 
     # --- encode_simpler --budget debug on the main path's image.
     cool = root / "simpler_512x768.cool"
-    before = Counter(ar.launches_by_batch)
+    before = Counter(TALLY["arm_by_batch"])
     t0 = clock()
     simple = encode_simpler.encode(encode_simpler._build_argparser().parse_args(
         ["-i", str(OUT_DIR / "synthetic_512x768.ppm"), "-o", str(cool), "--budget", "debug",
@@ -2017,7 +2072,7 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
     # --- retrain_latents on frame 0 of the video path's checkpoint (a copy).
     ckpt = root / "video_encoder.pkl"
     shutil.copy(OUT_DIR / "video" / "video_encoder.pkl", ckpt)
-    before = Counter(ar.launches_by_batch)
+    before = Counter(TALLY["arm_by_batch"])
     t0 = clock()
     retrained = retrain_latents.retrain(retrain_latents._build_argparser().parse_args(
         ["--checkpoint", str(ckpt), "--input",
@@ -2029,16 +2084,15 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
         raise AssertionError(f"retrain_latents did not lower the loss: {retrained}")
 
     # --- detailed_eval_metrics of the main path's trained decoder.
-    before = Counter(ar.launches_by_batch)
+    before = Counter(TALLY["arm_by_batch"])
     target = torch.tensor(img, device="cuda")
     detailed = {k: v.item() for k, v in detailed_eval_metrics(
         run.result.params, cfg, target, 1e-3).items()}
     sizes_of("detailed_eval_metrics", before, BATCH_SIZES)
     # The sharded rank's launches, and the trainer's steps in this process
     # (--data_parallel 0) and in its rank (1).
-    ups_more = ups_sharded + 2 * 4 * (batch_cfg.latent_n_grids - 1) * max(
-        MG_HT_SAMPLES // HT_BATCH, 1)
-    check_ups_launches("the multi-GPU and tools path", ups_more)
+    ups_more = ups_sharded + 2 * ups_per_step * max(MG_HT_SAMPLES // HT_BATCH, 1)
+    check_ups_launches("the multi-GPU and tools path", ups_more, ups_replayed)
     m = eval_metrics(run.result.params, cfg, target, 1e-3)
     per_grid = sum(detailed[f"latent_{i}_bpp"] for i in range(cfg.latent_n_grids))
     for k in ("loss", "total_rate_bpp"):
@@ -2046,7 +2100,7 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
             raise AssertionError(f"detailed_eval_metrics {k} {detailed[k]} vs {getattr(m, k)}")
     if abs(per_grid - detailed["rate_latent_bpp"]) > 1e-5 * detailed["rate_latent_bpp"]:
         raise AssertionError(f"per-grid rates sum to {per_grid}, not {detailed}")
-    launches = ar.launch_count
+    launches = arm_launches()
 
     emit({"phase": "multi_gpu_and_tools_path", "launches": launches,
           "arm_rate_launches_by_step_and_batch": seen, "sharded_encode": sharded,
@@ -2066,6 +2120,7 @@ def main() -> int:
         print(f"chip_smoke: no coolchic_tpu_torch package beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "tests"))  # torch_kernel_checks.py
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2082,6 +2137,7 @@ def main() -> int:
     timed("build", phase_build)
     pyramid = timed("kernel_checks", phase_kernel_checks)
     ups = timed("ups_wgrad", phase_ups_wgrad)
+    install_launch_tallies()
     count_ups_training_steps()
     launches, run, cfg, img, cool, single_steps_per_s = timed("main_path", phase_main_path)
     timed("bitstream", phase_bitstream, run, cfg, img, cool)

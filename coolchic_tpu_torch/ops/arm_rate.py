@@ -24,7 +24,6 @@ recomputes the bounds for the shapes it runs.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from functools import lru_cache
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -33,10 +32,8 @@ import torch
 from coolchic_tpu_torch.models.arm import arm_rate_plain
 
 # Kernel launches by this wrapper in this process (comparison runs included);
-# callers that count a run set it to 0 first. ``launches_by_batch`` splits
-# the same launches by the number of images each covered (clear it likewise).
+# callers that count a run set it to 0 first.
 launch_count = 0
-launches_by_batch: Counter = Counter()
 
 MAX_PLANES = 64  # kMaxPlanes of csrc/arm_rate.cu: planes per launch
 MAX_HIDDEN = 1023  # kMaxHidden of csrc/arm_rate.cu
@@ -162,7 +159,6 @@ def launch_arm_rate(
             if err != 0:
                 raise RuntimeError(f"arm_rate kernel launch failed with CUDA error {err}")
             launch_count += 1
-            launches_by_batch[n_images] += 1
 
 
 def _checked_device(latents: Sequence[torch.Tensor], dim_arm: int, n_dims: int) -> torch.device:

@@ -29,21 +29,15 @@ gradient) ``filter_1d`` is the library's call alone.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
-from contextlib import contextmanager
 from functools import lru_cache
-from typing import Iterator, List, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 # Entry calls of the kernel in this process (one per weight gradient on a
-# CUDA tensor), and the same by launch geometry (``_launch_args``: the
-# kind of pass, taps, shapes, strides and 16-byte loads or not); callers
-# that count a run set the first to 0 and clear the second.
+# CUDA tensor); callers that count a run set it to 0 first.
 launch_count = 0
-launches_by_geometry: Counter = Counter()
-_captures: List[List[Tuple]] = []  # open capture_calls() lists
 
 THREADS = 256  # kThreads of csrc/ups_wgrad.cu
 CHUNK = 128  # kChunk of csrc/ups_wgrad.cu: A columns of a warp's item along columns
@@ -165,7 +159,7 @@ def weight_grad_cuda(x: torch.Tensor, gy: torch.Tensor, k: int, transposed: bool
     # A is read at every position; the window tensor at shifted positions.
     a, win = (x, gy) if transposed else (gy, x)
     index = x.get_device()
-    geom, plan, out_shape, geometry = _launch_args(
+    geom, plan, out_shape = _launch_args(
         transposed, axis, k, a.shape, a.stride(), win.shape, win.stride(),
         (a.data_ptr() | win.data_ptr()) % 16 == 0, x.dtype, gy.dtype, index, gy.get_device())
     out = x.new_empty(out_shape)  # dW [B, k], then the partial sums
@@ -181,7 +175,6 @@ def weight_grad_cuda(x: torch.Tensor, gy: torch.Tensor, k: int, transposed: bool
     if err != 0:
         raise RuntimeError(f"ups_wgrad kernel launch failed with CUDA error {err}")
     launch_count += 1
-    launches_by_geometry[geometry] += 1
     return out[0]
 
 
@@ -196,9 +189,8 @@ def _launch_args(transposed, axis, k, a_shape, a_stride, w_shape, w_stride, ptrs
     """For tensors of these shapes, strides and dtypes on these devices
     (indices, -1 on the host), with both pointers 16-byte aligned or not:
     the launch's ctypes arrays (the geometry of A and of the window tensor,
-    and the plan: ``csrc/ups_wgrad.cu::ups_wgrad_launch``), the shape of its
-    output and the launch geometry (``launches_by_geometry``'s key). Raises
-    on what the kernel does not take."""
+    and the plan: ``csrc/ups_wgrad.cu::ups_wgrad_launch``) and the shape of
+    its output. Raises on what the kernel does not take."""
     if x_dtype != torch.float32 or gy_dtype != torch.float32:
         raise TypeError(f"the upsampling weight-gradient kernel takes float32, found "
                         f"{x_dtype} and {gy_dtype}")
@@ -220,34 +212,17 @@ def _launch_args(transposed, axis, k, a_shape, a_stride, w_shape, w_stride, ptrs
         split = cols_plan(n_c, n_b, h, w, k, _sm_count(x_index))
     plan = (axis, 2 if transposed else 1, k, 0 if transposed else -(k // 2), n_c, n_b, *split)
     geom = (*a_stride[:3], *a_shape[2:], *w_stride[:3], *w_shape[2:])
-    geometry = (transposed, axis, k, tuple(a_shape), a_stride, tuple(w_shape), w_stride, aligned)
-    return ((ctypes.c_longlong * 10)(*geom), (ctypes.c_int * 12)(*plan),
-            (1 + split[5], n_b, k), geometry)
+    return (ctypes.c_longlong * 10)(*geom), (ctypes.c_int * 12)(*plan), (1 + split[5], n_b, k)
 
 
 def weight_grad(x: torch.Tensor, gy: torch.Tensor, k: int, transposed: bool,
                 axis: int) -> torch.Tensor:
     """dW [B, k]: the plain version on the CPU, the kernel on CUDA."""
-    for calls in _captures:
-        calls.append((x.detach(), gy.detach(), k, transposed, axis))
     if x.device.type == "cpu":
         return weight_grad_plain(x, gy, k, transposed, axis)
     if x.device.type == "cuda":
         return weight_grad_cuda(x, gy, k, transposed, axis)
     raise ValueError(f"the upsampling filters run on cpu or cuda tensors, found {x.device}")
-
-
-@contextmanager
-def capture_calls() -> Iterator[List[Tuple]]:
-    """Within the block, each weight gradient's (x, gy, k, transposed, axis)
-    as ``weight_grad`` receives them, in the backward's order, into the
-    list it yields (the tensors themselves, not copies)."""
-    calls: List[Tuple] = []
-    _captures.append(calls)
-    try:
-        yield calls
-    finally:
-        _captures.remove(calls)
 
 
 def _library_call(x, w, transposed, stride, padding):

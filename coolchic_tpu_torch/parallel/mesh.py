@@ -10,11 +10,6 @@ r. Per-image encodes are independent: a rank runs the one-device engine on
 its rows, and the only collectives are the mean loss of
 ``batched_train_step`` (JAX's ``pmean``) and the gather of an encode's
 results, so that every rank returns the whole batch in image order.
-
-The launch counts of the ARM-rate kernel (``ops/arm_rate.py``) and of the
-upsampling's weight-gradient kernel (``ops/ups_filter.py``) are kept per
-process; ``launch`` adds every rank's counts to the caller's, so that a
-count read around a launched run includes its ranks' launches.
 """
 
 from __future__ import annotations
@@ -30,7 +25,6 @@ import torch.distributed as dist
 
 from coolchic_tpu_torch.models.config import CoolChicConfig
 from coolchic_tpu_torch.models.coolchic import init_coolchic_params
-from coolchic_tpu_torch.ops import arm_rate, ups_filter
 from coolchic_tpu_torch.params import from_numpy_pytree, stack_params, to_numpy_pytree, tree_map
 from coolchic_tpu_torch.train.encode import EncodeResult, EncodeStats, encode_frame_batch
 from coolchic_tpu_torch.train.presets import Preset, TrainerPhase
@@ -102,11 +96,6 @@ def _worker(rank: int, world_size: int, device_type: str, workdir: str, flags: D
                             world_size=world_size, device_id=device_id)
     try:
         result = fn(*args, **kwargs, mesh=make_mesh())
-        torch.save({"launch_count": arm_rate.launch_count,
-                    "launches_by_batch": dict(arm_rate.launches_by_batch),
-                    "ups_launch_count": ups_filter.launch_count,
-                    "ups_launches_by_geometry": dict(ups_filter.launches_by_geometry)},
-                   Path(workdir) / f"counts_{rank}.pt")
         if rank == 0:
             torch.save(result, Path(workdir) / "result.pt")
         dist.barrier()
@@ -135,12 +124,6 @@ def launch(fn: Callable, world_size: int, device: str | torch.device, *args, **k
         torch.multiprocessing.spawn(
             _worker, args=(world_size, device.type, workdir, _backend_flags(), fn, args, kwargs),
             nprocs=world_size, join=True)
-        for rank in range(world_size):
-            counts = torch.load(Path(workdir) / f"counts_{rank}.pt")
-            arm_rate.launch_count += counts["launch_count"]
-            arm_rate.launches_by_batch.update(counts["launches_by_batch"])
-            ups_filter.launch_count += counts["ups_launch_count"]
-            ups_filter.launches_by_geometry.update(counts["ups_launches_by_geometry"])
         return torch.load(Path(workdir) / "result.pt", map_location="cpu", weights_only=False)
 
 

@@ -36,7 +36,7 @@ from coolchic_tpu_torch.models.config import CoolChicConfig
 from coolchic_tpu_torch.models.coolchic import coolchic_forward
 from coolchic_tpu_torch.ops import arm_rate as ops
 from coolchic_tpu_torch.params import from_numpy_pytree
-from coolchic_tpu_torch.utils.rate_check import (
+from torch_kernel_checks import (
     LARGE_ARMS, LARGE_SEEDS, arm_rate_f64, check_rate, compare_rates, holds, large_latent_case,
 )
 

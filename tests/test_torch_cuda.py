@@ -15,7 +15,7 @@ bits), with no latent beyond 1e-4 that is neither: the plain version in
 float64, and the plain version in f32 as the port runs it (cuBLAS, which
 sums in another order than the kernel). On latents past TF32's exact
 integers the f32 plain version itself misses float64 on some inputs; there
-the kernel is held to float64 alone (``utils/rate_check.py``).
+the kernel is held to float64 alone (``tests/torch_kernel_checks.py``).
 """
 
 import numpy as np
@@ -28,7 +28,7 @@ from coolchic_tpu_torch.models.coolchic import init_coolchic_params
 from coolchic_tpu_torch.ops import arm_rate as ops
 from coolchic_tpu_torch.params import from_numpy_pytree, stack_params, to_numpy_pytree
 from coolchic_tpu_torch.train.step import eval_metrics
-from coolchic_tpu_torch.utils.rate_check import (
+from torch_kernel_checks import (
     LARGE_ARMS, LARGE_SEEDS, check_rate, holds, large_latent_case,
 )
 
@@ -502,16 +502,16 @@ def test_sharded_encode_at_world_size_1_on_nccl_equals_the_batch(cuda):
     ``encode_frame_batch`` in this process on the same images and seeds: the
     same work, so the same metrics (rtol 1e-3: the backward of the
     synthesis' replicate padding sums with atomics, in another order from
-    run to run) and the same kernel launches,
-    which ``launch`` adds to this process's count."""
-    from coolchic_tpu_torch.parallel import encode_batch_sharded, launch
+    run to run) and the same kernel launches, which the rank counts and
+    returns with its result."""
+    import torch_parallel_workers as workers
+
+    from coolchic_tpu_torch.parallel import launch
     from coolchic_tpu_torch.train.encode import encode_frame_batch
 
     cfg, preset, targets = _small_batch(cuda)
-    count = ops.launch_count
-    res, infos = launch(encode_batch_sharded, 1, "cuda", targets, [1e-3, 4e-3], cfg, preset,
-                        [0, 1], with_quant_info=True)
-    rank_launches = ops.launch_count - count
+    (res, infos), rank_launches = launch(workers.encode_counting_launches, 1, "cuda", targets,
+                                         [1e-3, 4e-3], cfg, preset, [0, 1], with_quant_info=True)
     count = ops.launch_count
     want, want_infos = encode_frame_batch(targets.to(cuda), [1e-3, 4e-3], cfg, preset, [0, 1],
                                           with_quant_info=True)
@@ -560,10 +560,10 @@ UPS_SHAPES = [((512, 768), 8), ((256, 256), 8), ((1080, 1920), 1), ((37, 130), 3
 def test_ups_wgrad_kernel_matches_plain_in_float64(cuda, img_size, n_images):
     """Every weight gradient of the cascade (24 for 7 grids): the kernel
     within 1e-5 of the plain version in float64, relative to each tap's sum
-    of |terms| (``utils/ups_check.py::weight_grad_error``), and equal bit for
+    of |terms| (``torch_kernel_checks.py::weight_grad_error``), and equal bit for
     bit on a second run."""
     from coolchic_tpu_torch.ops import ups_filter
-    from coolchic_tpu_torch.utils.ups_check import cascade_weight_grads, weight_grad_error
+    from torch_kernel_checks import cascade_weight_grads, weight_grad_error
 
     count = ups_filter.launch_count
     calls = cascade_weight_grads(img_size, n_images, cuda)
@@ -592,7 +592,7 @@ def test_ups_wgrad_kernel_matches_plain_at_other_tap_counts(cuda, x_shape, trans
     axes: within 1e-5 of the plain version in float64 (``weight_grad_error``)
     and equal bit for bit on a second run."""
     from coolchic_tpu_torch.ops import ups_filter
-    from coolchic_tpu_torch.utils.ups_check import weight_grad_error
+    from torch_kernel_checks import weight_grad_error
 
     gen = torch.Generator(cuda).manual_seed(k + 16 * axis)
     strided = x_shape == "strided"
@@ -630,7 +630,7 @@ def test_ups_filter_forward_and_input_gradient_are_the_library_s(cuda, monkeypat
     import torch.nn.functional as F
 
     from coolchic_tpu_torch.ops import ups_filter
-    from coolchic_tpu_torch.utils.ups_check import weight_grad_error
+    from torch_kernel_checks import weight_grad_error
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     gen = torch.Generator(cuda).manual_seed(7)

@@ -26,21 +26,49 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "coolchic_tpu")
 
 
+# The test helpers that run without JAX: in a rank, and beside chip_smoke.py.
+TEST_HELPERS = sorted((REPO / "tests").glob("torch_*.py"))
+
+
+def _package_files():
+    return sorted((REPO / "coolchic_tpu_torch").rglob("*.py"))
+
+
 def _port_files():
-    return sorted((REPO / "coolchic_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return _package_files() + [REPO / "chip_smoke.py"] + TEST_HELPERS
+
+
+def _imports(path):
+    """The modules ``path`` imports, anywhere in it, relative ones resolved."""
+    package = ".".join(path.relative_to(REPO).with_suffix("").parts[:-1])
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package.rsplit(".", node.level - 1)[0] if node.level else ""
+            yield ".".join(p for p in (base, node.module or "") if p)
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
-    for node in ast.walk(ast.parse(path.read_text())):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""]
-        else:
-            continue
-        for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+    for name in _imports(path):
+        assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_process_launcher_imports_no_kernel_wrapper():
+    """``parallel/`` starts ranks and runs the engine on them; what the
+    kernels launched is for a caller to count and return from its rank."""
+    for path in sorted((REPO / "coolchic_tpu_torch" / "parallel").glob("*.py")):
+        for name in _imports(path):
+            assert not (name + ".").startswith("coolchic_tpu_torch.ops."), \
+                f"{path}: imports {name}"
+
+
+def test_package_imports_nothing_from_the_tests():
+    helpers = {"tests", "conftest"} | {p.stem for p in TEST_HELPERS}
+    for path in _package_files():
+        for name in _imports(path):
+            assert name.split(".")[0] not in helpers, f"{path}: imports {name}"
 
 
 def test_importing_the_encoder_loads_no_jax():

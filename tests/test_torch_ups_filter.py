@@ -11,6 +11,8 @@ gradient is the plain version.
   tolerance of ``tests/test_torch_models.py`` (rtol = 1e-4, atol = 1e-6).
 * The weight gradient runs 4 times per x2 level in a training step that
   trains the upsampling, and never otherwise.
+* The card tests' helpers (``torch_kernel_checks.py``): the recorder of a
+  backward's weight gradients, and the error gate the kernel is held to.
 
 The kernel itself is held to this plain version on the card
 (``tests/test_torch_cuda.py``).
@@ -33,6 +35,7 @@ from coolchic_tpu_torch.ops import ups_filter
 from coolchic_tpu_torch.params import stack_params, tree_leaves
 from coolchic_tpu_torch.train.presets import TrainerPhase
 from coolchic_tpu_torch.train.step import AdamState, eval_metrics, train_step, trained_tensors
+from torch_kernel_checks import cascade_weight_grads, recorded_weight_grads, weight_grad_error
 
 # 1x1, odd H and W, W under and over a 32-column tile, a tall narrow plane.
 RAGGED = ((1, 1), (5, 7), (13, 37), (40, 3))
@@ -185,7 +188,7 @@ def test_weight_gradient_runs_only_when_the_upsampling_trains(modules, calls):
     lmbdas = torch.tensor([1e-3, 4e-3])
     before = [t.detach().clone() for t in tree_leaves(params["latents"])]
     count = ups_filter.launch_count
-    with ups_filter.capture_calls() as seen:
+    with recorded_weight_grads() as seen:
         train_step(params, tensors, AdamState.zeros(tensors), targets, lmbdas, cfg, phase, 1e-3,
                    0.3, 0.25, gen)
         assert len(seen) == calls
@@ -199,3 +202,42 @@ def test_weight_gradient_runs_only_when_the_upsampling_trains(modules, calls):
         eval_metrics(params, cfg, targets, lmbdas)
         assert len(seen) == calls
     assert ups_filter.launch_count == count
+
+
+# --------------------------------------------------------------------------- #
+# The helpers the card tests hold the kernel with
+# --------------------------------------------------------------------------- #
+def test_cascade_weight_grads_records_the_backward_in_order():
+    """At 64x96, B = 2: the 24 weight gradients of one backward, finest level
+    first, each level's pre-concat filter (W, then H) before its x2 step (W,
+    then H), with the shapes the filters see; ``ups_filter.weight_grad`` is
+    the module's own again after the block, and after an error in it."""
+    real = ups_filter.weight_grad
+    calls = cascade_weight_grads((64, 96), 2, "cpu")
+    assert ups_filter.weight_grad is real
+    assert [c[2:] for c in calls] == [(7, False, 3), (7, False, 2), (8, True, 3),
+                                      (8, True, 2)] * 6
+    sizes = [tuple(c[0].shape[2:]) for c in calls[::4]]
+    assert sizes == [(64 >> i, 96 >> i) for i in range(6)]
+    for x, gy, k, transposed, axis in calls:
+        assert x.shape[:2] == gy.shape[:2] and x.shape[1] == 2
+        want = 2 * (x.shape[axis] - 1) + k if transposed else x.shape[axis]
+        assert gy.shape[axis] == want and not x.requires_grad
+    with pytest.raises(RuntimeError, match="inside"):
+        with recorded_weight_grads():
+            assert ups_filter.weight_grad is not real
+            raise RuntimeError("inside the block")
+    assert ups_filter.weight_grad is real
+
+
+def test_weight_grad_error_passes_the_plain_version_and_fails_a_moved_tap():
+    """The card tests' gate, ``weight_grad_error`` <= 1e-5: the plain f32
+    weight gradient of each recorded call is under it; the same with one tap
+    moved by 1e-3 of that tap's sum of |terms| reads 1e-4 or more."""
+    for x, gy, k, transposed, axis in cascade_weight_grads((64, 96), 2, "cpu"):
+        got = ups_filter.weight_grad_plain(x, gy, k, transposed, axis)
+        assert weight_grad_error(got, x, gy, k, transposed, axis) < 1e-5
+        scale = ups_filter.weight_grad_plain(x.abs(), gy.abs(), k, transposed, axis)
+        moved = got.clone()
+        moved[1, k // 2] += 1e-3 * scale[1, k // 2]
+        assert weight_grad_error(moved, x, gy, k, transposed, axis) >= 1e-4

@@ -1,14 +1,20 @@
-"""Checks of an ARM rate against its references, shared by the tests and
-``chip_smoke.py``.
+"""Checks of the port's two CUDA kernels against their references, shared by
+the tests and ``chip_smoke.py``. It imports torch and the port only, so that
+it runs where JAX is not installed.
 
-The references of an f32 rate are the plain version in float64 (latents and
-weights cast) and the plain version in f32 (``models/arm.py``), both held
-with ``models.arm.rate_tolerance``.
+* The ARM rate (``ops/arm_rate.py``): the references of an f32 rate are the
+  plain version in float64 (latents and weights cast) and the plain version
+  in f32 (``models/arm.py``), both held with ``models.arm.rate_tolerance``.
+* The upsampling filters' weight gradient (``ops/ups_filter.py``): the
+  calls of one backward of the default decoder's cascade, as the kernel
+  receives them, and the error of a weight gradient against the plain
+  version in float64.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,7 +22,14 @@ import torch
 from coolchic_tpu_torch.models.arm import (
     STEEP_SCALE, TAIL_RATE, ArmParams, arm_rate_plain, rate_tolerance,
 )
+from coolchic_tpu_torch.models.config import CoolChicConfig
+from coolchic_tpu_torch.models.coolchic import init_coolchic_params
+from coolchic_tpu_torch.models.upsampling import upsampling_apply
+from coolchic_tpu_torch.ops import ups_filter
 
+# --------------------------------------------------------------------------- #
+# The ARM rate
+# --------------------------------------------------------------------------- #
 # Inputs past the integers TF32 holds exactly: (dim_arm, n_hidden) of the
 # cases, each run on every seed of LARGE_SEEDS (a fixed range, not picked).
 LARGE_ARMS = ((24, 0), (24, 1), (24, 2), (24, 3), (32, 2), (16, 2), (8, 1))
@@ -93,3 +106,59 @@ def check_rate(got: torch.Tensor, latents: Sequence[torch.Tensor], params: ArmPa
         "f32_holds": holds(compare_rates(plain, want64, scale64)),
         "plain_f32_max_abs_err_f64": (plain - want64).abs().max().item(),
     }
+
+
+# --------------------------------------------------------------------------- #
+# The upsampling filters' weight gradient
+# --------------------------------------------------------------------------- #
+@contextmanager
+def recorded_weight_grads() -> Iterator[List[Tuple]]:
+    """Within the block, each weight gradient's (x, gy, k, transposed, axis)
+    as ``ups_filter.weight_grad`` receives them, in the backward's order,
+    into the list it yields (the tensors themselves, not copies). Wraps the
+    module's ``weight_grad``, which ``_Filter1d.backward`` looks up at each
+    call, and puts it back on leaving the block, also on an error."""
+    calls: List[Tuple] = []
+    real = ups_filter.weight_grad
+
+    def recorded(x, gy, k, transposed, axis):
+        calls.append((x.detach(), gy.detach(), k, transposed, axis))
+        return real(x, gy, k, transposed, axis)
+
+    ups_filter.weight_grad = recorded
+    try:
+        yield calls
+    finally:
+        ups_filter.weight_grad = real
+
+
+def cascade_weight_grads(img_size, n_images: int, device, seed: int = 0) -> List[Tuple]:
+    """The weight gradients of one backward of the default decoder's
+    upsampling (7 grids) at ``img_size`` for ``n_images`` images, from
+    random latents and half kernels: (x, gy, k, transposed, axis) as the
+    kernel received them (24, in the backward's order), strides and all, so
+    that a second launch on them takes the same launch geometry."""
+    cfg = CoolChicConfig(img_size=img_size)
+    gen = torch.Generator(device).manual_seed(seed)
+    latents = [torch.randn((n_images, *s), generator=gen, device=device).requires_grad_()
+               for s in cfg.latent_shapes]
+    ups = init_coolchic_params(gen, cfg, device)["upsampling"]
+    ups = {key: [(h + 0.05 * torch.randn((n_images, h.shape[0]), generator=gen, device=device))
+                 .requires_grad_() for h in halves] for key, halves in ups.items()}
+    out = upsampling_apply(ups, latents, cfg.ups_k_size, cfg.ups_preconcat_k_size)
+    weight = torch.randn(out.shape, generator=gen, device=device)
+    with recorded_weight_grads() as calls:
+        torch.autograd.grad((out * weight).sum(), ups["ups"] + ups["preconcat"])
+    return calls
+
+
+def weight_grad_error(got: torch.Tensor, x: torch.Tensor, gy: torch.Tensor, k: int,
+                      transposed: bool, axis: int) -> float:
+    """Largest error of an f32 weight gradient [B, k] against the plain
+    version in float64, each tap's relative to its sum of |terms|: what an
+    f32 sum of those terms can be held to whatever their cancellation (a
+    term left out moves it by about 1 / terms)."""
+    x, gy = x.double(), gy.double()
+    want = ups_filter.weight_grad_plain(x, gy, k, transposed, axis)
+    scale = ups_filter.weight_grad_plain(x.abs(), gy.abs(), k, transposed, axis)
+    return ((got.double() - want).abs() / scale.clamp_min(1e-30)).max().item()

@@ -1,7 +1,8 @@
-"""What the ranks of ``tests/test_torch_parallel.py`` run. Each function is
-given to ``coolchic_tpu_torch.parallel.launch``, which calls it in a process
-of its own with ``mesh=``; it lives in this module, which imports torch and
-the port only, so that a rank imports neither JAX nor the test file."""
+"""What the ranks of ``tests/test_torch_parallel.py`` and of the card test
+of the sharded encode run. Each function is given to
+``coolchic_tpu_torch.parallel.launch``, which calls it in a process of its
+own with ``mesh=``; it lives in this module, which imports torch and the
+port only, so that a rank imports neither JAX nor the test file."""
 
 import numpy as np
 import torch
@@ -49,6 +50,16 @@ def encodes(targets, lmbdas, cfg, presets, seeds, mesh):
     views = [None] * mesh.world_size
     dist.all_gather_object(views, [(o[1].tolist(), o[4]) for o in out], group=mesh.group)
     return out, all(v == views[0] for v in views)
+
+
+def encode_counting_launches(*args, mesh, **kwargs):
+    """``encode_batch_sharded`` and the ARM kernel's launches this rank made
+    for it."""
+    from coolchic_tpu_torch.ops import arm_rate
+
+    count = arm_rate.launch_count
+    out = encode_batch_sharded(*args, mesh=mesh, **kwargs)
+    return out, arm_rate.launch_count - count
 
 
 def train_no_wholenet(cfg, n_hidden, weights, phase, lmbda, batch, n_samples, data_seed,
