@@ -74,6 +74,19 @@ Phases, one JSON line each:
      latent-only phases), and only at launch geometries checked here (the
      smoke's wrapper of ``ops.ups_filter.weight_grad_cuda`` tallies the
      launches by the geometry and plan arrays they were given).
+     Then the latent encoder's depthwise 7x7 weight-gradient kernel
+     (``ops/dw_wgrad.py``) at ``tests/torch_kernel_checks.py::DW_SHAPES`` and
+     at the trainer's 7 levels of 256x256 at B = 2 and 8, channels-last as
+     the trainer hands them over: within 1e-5 of each leaf's norm against
+     float64 and equal bit for bit on a second run; the
+     ``dw_wgrad`` line times it at 256x256, B = 8, per level and per step (21
+     calls) by CUDA-graph replay, beside the byte bound, the plain version
+     and, as a yardstick only, cuDNN's weight-only
+     ``aten.convolution_backward``. The two trainer paths then fail unless
+     they called it 21 times a training step (the host's calls, plus 21 a
+     graph replay, less 21 a capture) at checked shapes only, and every
+     other path fails unless it called it not at all (each path's tally set
+     to 0 before it runs).
   3. main path: encode a synthetic 512x768 RGB image (numpy seed 0) with the
      default DecoderConfig (arm 24,2; 40-wide synthesis; 7 grids) and the
      c3x recipe of preset_cfg/c3x.yaml, iteration counts cut (printed),
@@ -358,13 +371,14 @@ def host_ms(fn, n: int = 200) -> float:
     return 1e3 * statistics.median(times)
 
 
-# The smoke's own tallies of the two kernels' launches, kept by the wrappers
+# The smoke's own tallies of the kernels' launches, kept by the wrappers
 # that install_launch_tallies() puts around the port's launch functions, in
 # this process and in each rank the smoke starts (tallied_launch): the ARM
-# kernel's launches by batch size, and the upsampling weight-gradient
-# kernel's launches by the arguments it received (keyed_weight_grad). Each
-# count is the wrapped module's launch_count, read before and after the call.
-TALLY = {"arm_by_batch": Counter(), "ups_by_geometry": Counter()}
+# kernel's launches by batch size, the upsampling weight-gradient kernel's
+# launches by the arguments it received (keyed_weight_grad), and the
+# depthwise weight-gradient kernel's entry calls by input shape. Each count
+# is the wrapped module's launch_count, read before and after the call.
+TALLY = {"arm_by_batch": Counter(), "ups_by_geometry": Counter(), "dw_by_shape": Counter()}
 
 
 def keyed_weight_grad(weight_grad_cuda, x, gy, k, transposed, axis):
@@ -391,14 +405,15 @@ def keyed_weight_grad(weight_grad_cuda, x, gy, k, transposed, axis):
 
 
 def install_launch_tallies() -> None:
-    """Wrap ``ops.arm_rate.launch_arm_rate`` and
-    ``ops.ups_filter.weight_grad_cuda`` so that the launches each call makes
-    (its module's ``launch_count`` after, less before) add to ``TALLY``. Both
-    are looked up in their modules at each call."""
+    """Wrap ``ops.arm_rate.launch_arm_rate``, ``ops.ups_filter.weight_grad_cuda``
+    and ``ops.dw_wgrad.weight_grad_cuda`` so that the launches each call makes
+    (its module's ``launch_count`` after, less before) add to ``TALLY``. Each
+    is looked up in its module at each call."""
     from coolchic_tpu_torch.ops import arm_rate as ar
-    from coolchic_tpu_torch.ops import ups_filter
+    from coolchic_tpu_torch.ops import dw_wgrad, ups_filter
 
     launch_arm_rate, weight_grad_cuda = ar.launch_arm_rate, ups_filter.weight_grad_cuda
+    dw_weight_grad_cuda = dw_wgrad.weight_grad_cuda
 
     def tallied_arm_rate(latents, rate, layers, table, dim_arm, n_hidden, n_images=1):
         before = ar.launch_count
@@ -411,7 +426,14 @@ def install_launch_tallies() -> None:
         TALLY["ups_by_geometry"][key] += ups_filter.launch_count - before
         return out
 
+    def tallied_dw_weight_grad(x, gy):
+        before = dw_wgrad.launch_count
+        out = dw_weight_grad_cuda(x, gy)
+        TALLY["dw_by_shape"][tuple(x.shape)] += dw_wgrad.launch_count - before
+        return out
+
     ar.launch_arm_rate, ups_filter.weight_grad_cuda = tallied_arm_rate, tallied_weight_grad
+    dw_wgrad.weight_grad_cuda = tallied_dw_weight_grad
 
 
 def tallied_rank(fn, *args, mesh, **kwargs):
@@ -525,6 +547,43 @@ def check_ups_launches(path: str, more: int = 0, replayed: int = 0) -> dict:
     UPS_BY_PATH[path] = {"launches": want,
                          "by_batch": {str(b): n for b, n in sorted(by_batch.items())}}
     return UPS_BY_PATH[path]
+
+
+# Input shapes at which phase_dw_wgrad held the depthwise weight-gradient
+# kernel to float64, and what check_dw_launches found, by path.
+DW_CHECKED = set()
+DW_BY_PATH = {}
+
+
+def dw_per_step(cfg) -> int:
+    """The depthwise kernel's entry calls in one training step of a whole net
+    over ``cfg``: one per ConvNeXt block, 3 a level of the latent encoder."""
+    return 3 * cfg.latent_n_grids
+
+
+def dw_reset() -> None:
+    TALLY["dw_by_shape"].clear()
+
+
+def check_dw_launches(path: str, want: int = 0, replayed: int = 0) -> dict:
+    """The depthwise kernel's entry calls since ``dw_reset()``: those the
+    tally counted on the host, plus ``replayed`` (as in
+    ``check_ups_launches``: ``dw_per_step`` a replay less that a capture).
+    Raises unless they are ``want`` (none, for a path that trains no
+    hypernet) and ``phase_dw_wgrad`` held each of their shapes to
+    float64."""
+    by_shape = TALLY["dw_by_shape"]
+    counted = sum(by_shape.values())
+    if counted + replayed != want:
+        raise AssertionError(f"{path} called dw_wgrad {counted} + {replayed} (replayed) times; "
+                             f"its training steps make {want} calls")
+    unchecked = set(by_shape) - DW_CHECKED
+    if unchecked:
+        raise AssertionError(f"{path} called dw_wgrad at shapes no check held to float64: "
+                             f"{sorted(unchecked)}")
+    DW_BY_PATH[path] = {"calls": want, "host_calls": counted,
+                        "by_shape": {"x".join(map(str, k)): n for k, n in sorted(by_shape.items())}}
+    return DW_BY_PATH[path]
 
 
 def phase_build() -> None:
@@ -874,6 +933,70 @@ def ups_wgrad_times(img_size, n_images: int, calls) -> dict:
     return step
 
 
+def phase_dw_wgrad() -> dict:
+    """The latent encoder's depthwise 7x7 weight-gradient kernel
+    (``ops/dw_wgrad.py``) at every shape of ``torch_kernel_checks.DW_SHAPES``
+    and at the 7 levels of the trainer's patch at each batch a path below
+    trains at, x and the output gradient channels-last as the trainer hands
+    them over: within 1e-5 of each leaf's norm against float64 and equal bit
+    for bit on a second run; fills ``DW_CHECKED``. Then the ``dw_wgrad`` line
+    at 256x256, B = 8: per level (one call; 3 a step) the kernel's device ms (CUDA-graph replay) and host µs a
+    call, its byte bound (x and the output gradient read once at 3.35 TB/s),
+    the plain version's ms and, as a yardstick only, cuDNN's weight-only
+    ``aten.convolution_backward`` (output mask (False, True, False)) on the
+    same tensors, what autograd called before the kernel; the sums per step
+    (21 calls)."""
+    import torch
+
+    from coolchic_tpu_torch.ops import dw_wgrad
+    from torch_kernel_checks import DW_SHAPES, dw_grad_error
+
+    n_c = DW_SHAPES[0][1]
+    levels = [(b, n_c, HT_PATCH >> i, HT_PATCH >> i) for b in sorted({HT_CPU_BATCH, HT_BATCH})
+              for i in range(7)]
+    gen = torch.Generator("cuda").manual_seed(0)
+    max_err = 0.0
+    last = torch.channels_last
+    for shape in dict.fromkeys(DW_SHAPES + tuple(levels)):
+        x = torch.randn(shape, generator=gen, device="cuda").contiguous(memory_format=last)
+        gy = torch.randn(shape, generator=gen, device="cuda").contiguous(memory_format=last)
+        got = dw_wgrad.weight_grad_cuda(x, gy)
+        err = dw_grad_error(got, x, gy)
+        again = dw_wgrad.weight_grad_cuda(x, gy)
+        if err > 1e-5 or not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+            raise AssertionError(f"dw_wgrad kernel off float64 ({err}) or not repeatable at "
+                                 f"{shape}")
+        DW_CHECKED.add(shape)
+        max_err = max(max_err, err)
+    emit({"phase": "dw_wgrad_checks", "shapes": [list(s) for s in sorted(DW_CHECKED)],
+          "max_err": max_err})
+
+    per_level = []
+    for shape in (s for s in levels if s[0] == HT_BATCH):
+        x = torch.randn(shape, generator=gen, device="cuda").contiguous(memory_format=last)
+        gy = torch.randn(shape, generator=gen, device="cuda").contiguous(memory_format=last)
+        w = torch.zeros((n_c, 1, 7, 7), device="cuda")
+        n_bytes = 8 * x.numel()
+        per_level.append({
+            "shape": list(shape), "max_err": dw_grad_error(dw_wgrad.weight_grad_cuda(x, gy), x, gy),
+            "bytes": n_bytes, "bound_ms": 1e3 * n_bytes / PEAK_BYTES_PER_S,
+            "ms": graph_ms(lambda: dw_wgrad.weight_grad_cuda(x, gy)),
+            "host_us": 1e3 * host_ms(lambda: dw_wgrad.weight_grad_cuda(x, gy)),
+            "plain_ms": time_ms(lambda: dw_wgrad.weight_grad_plain(x, gy), n_iter=5, per_sample=2),
+            "library_ms": graph_ms(lambda: torch.ops.aten.convolution_backward(
+                gy, x, w, None, (1, 1), (3, 3), (1, 1), False, (0, 0), n_c,
+                (False, True, False)), per_graph=2),
+        })
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms", "host_us")
+    step = {key + "_per_step": 3 * sum(level[key] for level in per_level) for key in keys}
+    step["max_err"] = max(level["max_err"] for level in per_level)
+    step["share_of_bound"] = step["bound_ms_per_step"] / step["ms_per_step"]
+    step["share_of_bound_finest"] = per_level[0]["bound_ms"] / per_level[0]["ms"]
+    emit({"phase": "dw_wgrad", "img_size": [HT_PATCH, HT_PATCH], "n_images": HT_BATCH, **step,
+          "levels": per_level})
+    return step
+
+
 def synthetic_image(h: int, w: int, seed: int = 0):
     """Smooth gradients plus texture, [3, H, W] in [0, 1], from a numpy seed
     (the noise, and for seeds past 0 a shift of the two textures)."""
@@ -951,10 +1074,12 @@ def phase_main_path():
     torch.cuda.reset_peak_memory_stats()
     arm_reset()
     ups_reset()
+    dw_reset()
     run = encode_one_run(run_cfg, seed=0, device="cuda")
     launches = arm_launches()
     launches_by_batch = check_batch_sizes_seen("the main path")
     ups = check_ups_launches("the main path")
+    check_dw_launches("the main path")
     stats = run.result.stats
 
     cfg = dec.to_coolchic_config((IMG_H, IMG_W))
@@ -1028,6 +1153,7 @@ def phase_bitstream(run, cfg, img, cool: Path) -> None:
         torch.cuda.synchronize()
         return time.perf_counter()
 
+    dw_reset()
     data = cool.read_bytes()
     if data != run.bitstream:
         raise AssertionError("the file written by --output is not the run's bitstream")
@@ -1112,6 +1238,7 @@ def phase_bitstream(run, cfg, img, cool: Path) -> None:
         raise AssertionError(f"float decode {psnr_float} dB vs integer {psnr_int} dB, "
                              f"max diff {float_vs_int_255}/255")
 
+    check_dw_launches("the bitstream path")
     emit({
         "phase": "bitstream",
         "n_bytes": len(data), "n_bytes_split": n_bytes,
@@ -1164,12 +1291,14 @@ def phase_batch_path(single_steps_per_s: float) -> int:
     torch.cuda.reset_peak_memory_stats()
     arm_reset()
     ups_reset()
+    dw_reset()
     result, infos = encode_frame_batch(
         targets, BATCH_LMBDAS, cfg, enc.recipe, seeds=list(range(n_images)),
         valid_hws=valid_hws, with_quant_info=True)
     launches = arm_launches()
     launches_by_batch = check_batch_sizes_seen("the batch path")
     check_ups_launches("the batch path")
+    check_dw_launches("the batch path")
     peak_bytes = torch.cuda.max_memory_allocated()
     stats = result.stats
 
@@ -1342,12 +1471,14 @@ def phase_video_path() -> int:
     torch.cuda.reset_peak_memory_stats()
     arm_reset()
     ups_reset()
+    dw_reset()
     t0 = time.perf_counter()
     run = encode_one_run(run_cfg, seed=0, device="cuda")
     encode_s = time.perf_counter() - t0
     launches = arm_launches()
     launches_by_batch = check_batch_sizes_seen("the video path", VIDEO_BATCH_SIZES)
     check_ups_launches("the video path")
+    check_dw_launches("the video path")
     peak_bytes = torch.cuda.max_memory_allocated()
     venc = run.result
     cfg = dec.to_coolchic_config((VIDEO_H, VIDEO_W))
@@ -1504,6 +1635,7 @@ def phase_hypernet_path(trained_params) -> int:
     torch.cuda.reset_peak_memory_stats()
     arm_reset()
     ups_reset()
+    dw_reset()
 
     # 1. The one-shot eval forward of 8 predicted decoders: one launch at B = 8.
     t0 = clock()
@@ -1608,6 +1740,7 @@ def phase_hypernet_path(trained_params) -> int:
     launches = arm_launches()
     launches_by_batch = check_batch_sizes_seen("the hypernet path")
     check_ups_launches("the hypernet path")
+    check_dw_launches("the hypernet path")
     peak_bytes = torch.cuda.max_memory_allocated()
     emit({
         "phase": "hypernet_path",
@@ -1728,13 +1861,14 @@ def phase_hypernet_train_path() -> int:
             state.hypernet[key].shape, generator=gen, device="cuda")
     imgs = torch.tensor(next(synthetic_batches(HT_CPU_BATCH, (HT_PATCH, HT_PATCH), seed=7)))
     ups_reset()
+    dw_reset()
     card_vs_cpu = hypernet_step_card_vs_cpu(net, state, imgs)
     # Launches of the whole-net steps, which count_ups_training_steps does
     # not see: one card step here (the first of its graph: eager), then those
     # of each train_wholenet call, whose replays the wrapper does not see
     # (its train span counts them).
     ups_per_step = 4 * (cfg.latent_n_grids - 1)
-    ups_steps = {"launches": ups_per_step, "replayed": 0}
+    steps_run = {"steps": 1, "replayed": 0}  # beyond their captures
     del net, state
 
     common = ["--synthetic", "--device", "cuda", "--disable_wandb", "--patch_size",
@@ -1769,13 +1903,13 @@ def phase_hypernet_train_path() -> int:
 
     def spy_train(net, state, data_iter, eval_imgs, **kw):
         current["in_loop"] = True
-        ups_steps["launches"] += ups_per_step * max(
+        steps_run["steps"] += max(
             (kw["n_samples"] - kw.get("samples_offset", 0)) // kw["batch_size"], 1)
         t0 = clock()
         best, logs = real_train(net, state, data_iter, eval_imgs, **kw)
         wall_s = clock() - t0
         steps = trace.spans("train")[-1].attrs
-        ups_steps["replayed"] += ups_per_step * (steps["graph_replays"] - steps["graph_captures"])
+        steps_run["replayed"] += steps["graph_replays"] - steps["graph_captures"]
         calls.append({"net": net, "state": state, "eval_imgs": eval_imgs, "kw": kw,
                       "best": best, "logs": logs, "wall_s": wall_s, "steps": steps})
         current["in_loop"] = False
@@ -1814,7 +1948,10 @@ def phase_hypernet_train_path() -> int:
         inference.save_checkpoint = training.save_checkpoint = real_save
     launches = arm_launches()
     launches_by_batch = check_batch_sizes_seen("the hypernet train path", HT_BATCH_SIZES)
-    check_ups_launches("the hypernet train path", ups_steps["launches"], ups_steps["replayed"])
+    check_ups_launches("the hypernet train path", ups_per_step * steps_run["steps"],
+                       ups_per_step * steps_run["replayed"])
+    check_dw_launches("the hypernet train path", dw_per_step(cfg) * steps_run["steps"],
+                      dw_per_step(cfg) * steps_run["replayed"])
     peak_bytes = torch.cuda.max_memory_allocated()
     n_validations = sum(len(c["logs"]) for c in calls)
     n_match_evals = (HT_MATCH[0] // HT_MATCH[1]) * (1 + 1) + 1
@@ -1962,6 +2099,7 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
     torch.cuda.synchronize()
     arm_reset()
     ups_reset()
+    dw_reset()
 
     # --- the sharded encode, one rank on NCCL, and its reference here, both
     # with cuDNN's deterministic algorithms (the rank takes this process's
@@ -2042,7 +2180,8 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
             sizes_of(f"hypernet_train_dp{n}", before, HT_BATCH_SIZES)
             if n == 0:  # one device: its steps are CUDA graphs (see check_ups_launches)
                 steps = trace.spans("train")[-1].attrs
-                ups_replayed = ups_per_step * (steps["graph_replays"] - steps["graph_captures"])
+                replayed = steps["graph_replays"] - steps["graph_captures"]
+                ups_replayed = ups_per_step * replayed
             best = load_checkpoint(wd / f"samples_{MG_HT_SAMPLES}.pkl", device="cuda")
             m = {k: float(v) for k, v in evaluate_wholenet(net, best, eval_imgs, 1e-3).items()}
             dp[n] = {"wall_s": wall, "samples_per_s": MG_HT_SAMPLES / wall, "eval": m,
@@ -2093,6 +2232,9 @@ def phase_multi_gpu_and_tools_path(run, cfg, img) -> int:
     # (--data_parallel 0) and in its rank (1).
     ups_more = ups_sharded + 2 * ups_per_step * max(MG_HT_SAMPLES // HT_BATCH, 1)
     check_ups_launches("the multi-GPU and tools path", ups_more, ups_replayed)
+    n_dw = dw_per_step(batch_cfg)
+    check_dw_launches("the multi-GPU and tools path",
+                      2 * n_dw * max(MG_HT_SAMPLES // HT_BATCH, 1), n_dw * replayed)
     m = eval_metrics(run.result.params, cfg, target, 1e-3)
     per_grid = sum(detailed[f"latent_{i}_bpp"] for i in range(cfg.latent_n_grids))
     for k in ("loss", "total_rate_bpp"):
@@ -2137,6 +2279,7 @@ def main() -> int:
     timed("build", phase_build)
     pyramid = timed("kernel_checks", phase_kernel_checks)
     ups = timed("ups_wgrad", phase_ups_wgrad)
+    dw = timed("dw_wgrad", phase_dw_wgrad)
     install_launch_tallies()
     count_ups_training_steps()
     launches, run, cfg, img, cool, single_steps_per_s = timed("main_path", phase_main_path)
@@ -2186,6 +2329,15 @@ def main() -> int:
         "launches_by_path": UPS_BY_PATH,
         "geometries_checked": len(UPS_CHECKED),
         "by_shape": ups,
+    }, {
+        "name": "dw_wgrad",
+        "route": "cuda",
+        "source": "coolchic_tpu_torch/csrc/dw_wgrad.cu",
+        "replaces": None,  # cuDNN's grouped direct weight gradient
+        "calls": sum(p["calls"] for p in DW_BY_PATH.values()),
+        "calls_by_path": DW_BY_PATH,
+        "shapes_checked": len(DW_CHECKED),
+        "at_256x256_b8": dw,
     }], "seconds": time.perf_counter() - t0, "phase_seconds": phase_seconds})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

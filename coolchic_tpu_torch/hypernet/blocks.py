@@ -34,6 +34,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from coolchic_tpu_torch.ops.dw_wgrad import TAPS, depthwise_conv
+
 # flax's variance_scaling divides by the std of a standard normal truncated
 # to [-2, 2] so that the truncated draw keeps the variance asked for.
 _TRUNC_STD = 0.87962566103423978
@@ -74,6 +76,18 @@ class Conv(nn.Conv2d):
         if self.bias is not None:
             out["bias"] = torch.zeros(shape[0], device=device)
         return out
+
+
+class DepthwiseConv(Conv):
+    """flax ``nn.Conv(c, (7, 7), padding="SAME", feature_group_count=c)``:
+    the depthwise convolution through ``ops/dw_wgrad.py::depthwise_conv``,
+    whose weight and bias gradients are the hand-written kernel on the card."""
+
+    def __init__(self, n_channels: int, kernel_init: str = "lecun"):
+        super().__init__(n_channels, n_channels, TAPS, groups=n_channels, kernel_init=kernel_init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return depthwise_conv(x, self.weight, self.bias)
 
 
 class Dense(nn.Linear):
@@ -156,7 +170,7 @@ class ConvNeXtBlock(nn.Module):
     def __init__(self, n_channels: int, layer_scale_init: float = 1e-6):
         super().__init__()
         c = n_channels
-        self.Conv_0 = Conv(c, c, 7, groups=c, kernel_init="trunc02")
+        self.Conv_0 = DepthwiseConv(c, kernel_init="trunc02")
         self.LayerNorm_0 = LayerNorm(c)
         self.Conv_1 = Conv(c, 4 * c, 1, kernel_init="trunc02")
         self.Conv_2 = Conv(4 * c, c, 1, kernel_init="trunc02")

@@ -5,7 +5,8 @@ host C++ entropy / decoder backend of the repo's ``cpp/`` by ``g++``; each
 becomes a plain C ABI ``.so`` loaded with ``ctypes``. Builds are keyed by a
 hash of the sources and flags under ``coolchic_tpu_torch/_build/`` (listed
 in ``.gitignore``), so a checkout builds once and reuses the library after.
-Nothing is ever written beside the sources.
+Nothing is ever written beside the sources. ``launch_on`` launches a loaded
+kernel on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -16,8 +17,11 @@ import os
 import platform
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -71,6 +75,32 @@ def load_library(name: str) -> Tuple[ctypes.CDLL, str]:
     log = log_path.read_text() if log_path.exists() else ""
     _LOADED[name] = (ctypes.CDLL(str(lib_path)), log)
     return _LOADED[name]
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@lru_cache(maxsize=8)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_on(index: int, fn, *args) -> None:
+    """``fn(*args, stream)``, a ctypes launch that returns a CUDA error code,
+    on CUDA device ``index`` (made current for the call where it is not),
+    with ``stream`` the raw handle of PyTorch's current stream there
+    (``torch.cuda.current_stream`` builds a Python stream object on every
+    call). No synchronisation. Raises RuntimeError on a refused launch."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed with CUDA error {err}")
 
 
 def host_cpu_identity() -> str:

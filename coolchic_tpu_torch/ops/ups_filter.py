@@ -35,6 +35,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from coolchic_tpu_torch.ops.build import cdiv, launch_on, load_library, sm_count
+
 # Entry calls of the kernel in this process (one per weight gradient on a
 # CUDA tensor); callers that count a run set it to 0 first.
 launch_count = 0
@@ -57,8 +59,6 @@ _LIB = None
 def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        from coolchic_tpu_torch.ops.build import load_library
-
         lib, _ = load_library("ups_wgrad")
         p = ctypes.c_void_p
         lib.ups_wgrad_launch.argtypes = [p, p, p, p, p, p]
@@ -69,10 +69,6 @@ def _library() -> ctypes.CDLL:
             raise RuntimeError("csrc/ups_wgrad.cu and ops/ups_filter.py disagree on their sizes")
         _LIB = lib
     return _LIB
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def conv_args(transposed: bool, axis: int, k: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
@@ -100,11 +96,11 @@ def rows_plan(n_c: int, n_b: int, a_h: int, width: int, k: int, vec: int, n_sm: 
     the finest levels long ones, which load their first KMAX window rows
     less often."""
     kmax = kmax_for(k)
-    n_cg = _cdiv(width, vec)
-    want = _cdiv(n_sm * ROWS_THREADS_PER_SM, n_b * n_c * n_cg)
-    strip = _cdiv(a_h, min(a_h, want))
-    n_strips = _cdiv(a_h, strip)
-    return kmax, vec, strip, n_strips, n_cg, _cdiv(n_c * n_strips * n_cg, THREADS)
+    n_cg = cdiv(width, vec)
+    want = cdiv(n_sm * ROWS_THREADS_PER_SM, n_b * n_c * n_cg)
+    strip = cdiv(a_h, min(a_h, want))
+    n_strips = cdiv(a_h, strip)
+    return kmax, vec, strip, n_strips, n_cg, cdiv(n_c * n_strips * n_cg, THREADS)
 
 
 def cols_plan(n_c: int, n_b: int, height: int, a_w: int, k: int, n_sm: int):
@@ -112,15 +108,10 @@ def cols_plan(n_c: int, n_b: int, height: int, a_w: int, k: int, n_sm: int):
     image). A warp takes ``CHUNK`` columns of one row at a time; each image
     gets enough blocks for about ``COLS_THREADS_PER_SM`` threads an SM, and
     no more than its items keep busy."""
-    n_chunks = _cdiv(a_w, CHUNK)
-    want = _cdiv(n_sm * COLS_THREADS_PER_SM, n_b * THREADS)
-    n_blk = max(1, min(want, _cdiv(n_c * height * n_chunks, THREADS // 32)))
+    n_chunks = cdiv(a_w, CHUNK)
+    want = cdiv(n_sm * COLS_THREADS_PER_SM, n_b * THREADS)
+    n_blk = max(1, min(want, cdiv(n_c * height * n_chunks, THREADS // 32)))
     return kmax_for(k), n_chunks, 0, 0, 0, n_blk
-
-
-@lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def weight_grad_plain(x: torch.Tensor, gy: torch.Tensor, k: int, transposed: bool,
@@ -163,17 +154,8 @@ def weight_grad_cuda(x: torch.Tensor, gy: torch.Tensor, k: int, transposed: bool
         transposed, axis, k, a.shape, a.stride(), win.shape, win.stride(),
         (a.data_ptr() | win.data_ptr()) % 16 == 0, x.dtype, gy.dtype, index, gy.get_device())
     out = x.new_empty(out_shape)  # dW [B, k], then the partial sums
-    # The raw handle of the current stream: torch.cuda.current_stream builds
-    # a Python stream object on every call.
-    args = (a.data_ptr(), win.data_ptr(), geom, plan, out.data_ptr(),
-            torch._C._cuda_getCurrentRawStream(index))
-    if index == torch.cuda.current_device():
-        err = _library().ups_wgrad_launch(*args)
-    else:
-        with torch.cuda.device(index):
-            err = _library().ups_wgrad_launch(*args)
-    if err != 0:
-        raise RuntimeError(f"ups_wgrad kernel launch failed with CUDA error {err}")
+    launch_on(index, _library().ups_wgrad_launch, a.data_ptr(), win.data_ptr(), geom, plan,
+              out.data_ptr())
     launch_count += 1
     return out[0]
 
@@ -207,9 +189,9 @@ def _launch_args(transposed, axis, k, a_shape, a_stride, w_shape, w_stride, ptrs
     aligned = axis == 2 and w % 4 == 0 and ptrs_aligned and all(
         s % 4 == 0 for s in a_stride[:3] + w_stride[:3])
     if axis == 2:
-        split = rows_plan(n_c, n_b, h, w, k, 4 if aligned else 1, _sm_count(x_index))
+        split = rows_plan(n_c, n_b, h, w, k, 4 if aligned else 1, sm_count(x_index))
     else:
-        split = cols_plan(n_c, n_b, h, w, k, _sm_count(x_index))
+        split = cols_plan(n_c, n_b, h, w, k, sm_count(x_index))
     plan = (axis, 2 if transposed else 1, k, 0 if transposed else -(k // 2), n_c, n_b, *split)
     geom = (*a_stride[:3], *a_shape[2:], *w_stride[:3], *w_shape[2:])
     return (ctypes.c_longlong * 10)(*geom), (ctypes.c_int * 12)(*plan), (1 + split[5], n_b, k)

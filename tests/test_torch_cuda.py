@@ -2,8 +2,9 @@
 path's 1080p pyramid included), the eval forward (I, P and B frames, the
 fixed-point warp), the bitstream's float decode, the hypernet's batched eval
 forward and its delta search on the card against the CPU; the upsampling
-filters' weight-gradient kernel against its plain version in float64 and
-the library's forward and input gradient. Every test here needs an NVIDIA GPU and skips without one. The file imports no JAX, so it runs where JAX is not
+filters' weight-gradient kernel and the latent encoder's depthwise 7x7
+weight-gradient kernel against their plain versions in float64 and the
+library's forward and input gradient. Every test here needs an NVIDIA GPU and skips without one. The file imports no JAX, so it runs where JAX is not
 installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -29,7 +30,7 @@ from coolchic_tpu_torch.ops import arm_rate as ops
 from coolchic_tpu_torch.params import from_numpy_pytree, stack_params, to_numpy_pytree
 from coolchic_tpu_torch.train.step import eval_metrics
 from torch_kernel_checks import (
-    LARGE_ARMS, LARGE_SEEDS, check_rate, holds, large_latent_case,
+    DW_SHAPES, LARGE_ARMS, LARGE_SEEDS, check_rate, dw_grad_error, holds, large_latent_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -715,3 +716,136 @@ def test_ups_wgrad_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
         ups_filter.weight_grad_cuda(x, gy, 7, False, 3)
     ups_filter._launch_args.cache_clear()
     assert ups_filter.launch_count == count
+
+
+# --------------------------------------------------------------------------- #
+# The latent encoder's depthwise 7x7 weight-gradient kernel (ops/dw_wgrad.py)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_dw_wgrad_kernel_matches_plain_in_float64(cuda, shape):
+    """The kernel's weight and bias gradients at the latent encoder's levels
+    (and odd, single-pixel and 1080p planes), channels-last as the latent
+    encoder's backward hands them over: within 1e-5 of each leaf's norm
+    against the plain version in float64 (``dw_grad_error``), one entry call
+    each, and equal bit for bit on a second run."""
+    from coolchic_tpu_torch.ops import dw_wgrad
+
+    gen = torch.Generator(cuda).manual_seed(sum(shape))
+    x, gy = (torch.randn(shape, generator=gen, device=cuda).contiguous(
+        memory_format=torch.channels_last) for _ in range(2))
+    count = dw_wgrad.launch_count
+    got = dw_wgrad.weight_grad_cuda(x, gy)
+    assert dw_wgrad.launch_count == count + 1
+    assert got[0].shape == (shape[1], 1, 7, 7) and got[1].shape == (shape[1],)
+    err = dw_grad_error(got, x, gy)
+    assert err <= 1e-5, (shape, err)
+    again = dw_wgrad.weight_grad_cuda(x, gy)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_depthwise_conv_forward_and_input_gradient_are_the_library_s(cuda, monkeypatch):
+    """At the finest level (256x256, B = 8, 64 channels), x and the output
+    gradient channels-last as the latent encoder hands them over: the forward
+    and the input gradient equal autograd's through ``F.conv2d`` on the same
+    tensors bit for bit (cuDNN's deterministic mode), the weight and bias
+    gradients are the kernel's (one entry call), within 1e-5 of float64, the
+    library's own error printed beside them."""
+    import torch.nn.functional as F
+
+    from coolchic_tpu_torch.ops import dw_wgrad
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gen = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn(8, 64, 256, 256, generator=gen, device=cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = 0.02 * torch.randn(64, 1, 7, 7, generator=gen, device=cuda)
+    b = torch.randn(64, generator=gen, device=cuda)
+    gy = torch.randn(8, 64, 256, 256, generator=gen, device=cuda)
+    gy = gy.contiguous(memory_format=torch.channels_last)
+    lib = [t.clone().requires_grad_() for t in (x, w, b)]
+    new = [t.clone().requires_grad_() for t in (x, w, b)]
+    y_lib = F.conv2d(*lib, padding=3, groups=64)
+    count = dw_wgrad.launch_count
+    y_new = dw_wgrad.depthwise_conv(*new)
+    assert torch.equal(y_new, y_lib)
+    gx_lib, gw_lib, gb_lib = torch.autograd.grad(y_lib, lib, gy)
+    gx_new, gw_new, gb_new = torch.autograd.grad(y_new, new, gy)
+    assert dw_wgrad.launch_count == count + 1
+    assert torch.equal(gx_new, gx_lib)
+    err = dw_grad_error((gw_new, gb_new), x, gy)
+    err_lib = dw_grad_error((gw_lib, gb_lib), x, gy)
+    print(f"weight and bias gradients vs float64: kernel {err:.3g}, library {err_lib:.3g}")
+    assert err <= 1e-5
+
+
+def test_convnext_block_backward_replays_as_a_cuda_graph(cuda, monkeypatch):
+    """A ConvNeXt block's backward (64 channels, 64x64, B = 8) captured in a
+    CUDA graph: the kernel is entered once at the capture, and each replay
+    on new inputs gives the eager gradients bit for bit (cuDNN's
+    deterministic mode)."""
+    from torch.func import functional_call
+
+    from coolchic_tpu_torch.hypernet import blocks
+    from coolchic_tpu_torch.ops import dw_wgrad
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    module = blocks.ConvNeXtBlock(64)
+    gen = torch.Generator(cuda).manual_seed(5)
+    state = {k: (v.to(cuda) + 0.05 * torch.randn(v.shape, generator=gen, device=cuda))
+             .requires_grad_()
+             for k, v in blocks.init_params(module, torch.Generator().manual_seed(0), "cpu").items()}
+    leaves = list(state.values())
+
+    def grads(x, weight):
+        out = functional_call(module, state, (x,))
+        return torch.autograd.grad((out * weight).sum(), leaves)
+
+    static_x = torch.randn(8, 64, 64, 64, generator=gen, device=cuda)
+    static_w = torch.randn(8, 64, 64, 64, generator=gen, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        grads(static_x, static_w)  # warm-up: cuDNN's and the allocator's set-up
+        graph = torch.cuda.CUDAGraph()
+        count = dw_wgrad.launch_count
+        with torch.cuda.graph(graph, stream=stream):
+            static_grads = grads(static_x, static_w)
+        assert dw_wgrad.launch_count == count + 1
+    torch.cuda.current_stream().wait_stream(stream)
+    for seed in (1, 2):
+        gen.manual_seed(seed)
+        static_x.copy_(torch.randn(static_x.shape, generator=gen, device=cuda))
+        static_w.copy_(torch.randn(static_w.shape, generator=gen, device=cuda))
+        graph.replay()
+        want = grads(static_x.clone(), static_w.clone())
+        for name, got, ref in zip(state, static_grads, want):
+            assert torch.equal(got, ref), name
+    assert dw_wgrad.launch_count == count + 1 + 2
+
+
+def test_dw_wgrad_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
+    from coolchic_tpu_torch.ops import dw_wgrad
+
+    last = torch.channels_last
+    x = torch.randn(2, 4, 9, 12, device=cuda).contiguous(memory_format=last)
+    gy = torch.randn(2, 4, 9, 12, device=cuda).contiguous(memory_format=last)
+    with pytest.raises(TypeError):  # float64
+        dw_wgrad.weight_grad_cuda(x.double(), gy.double())
+    with pytest.raises(ValueError):  # NCHW: the Function makes it channels-last first
+        dw_wgrad.weight_grad_cuda(x, gy.contiguous())
+    with pytest.raises(ValueError):  # the output gradient on the host
+        dw_wgrad.weight_grad_cuda(x, gy.cpu())
+    with pytest.raises(ValueError):  # shapes that differ
+        dw_wgrad.weight_grad_cuda(x, gy[:, :, :8].contiguous(memory_format=last))
+    w5 = torch.randn(4, 1, 5, 5, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError):  # not 7x7: refused before the forward
+        dw_wgrad.depthwise_conv(x, w5, torch.zeros(4, device=cuda))
+    # A split the kernel refuses (strips that miss rows): the launch fails and
+    # the wrapper raises, computing nothing else.
+    count = dw_wgrad.launch_count
+    dw_wgrad._launch_args.cache_clear()
+    monkeypatch.setattr(dw_wgrad, "plan", lambda *a: (1, 1, 3, 1))  # 1 of 9 rows
+    with pytest.raises(RuntimeError):
+        dw_wgrad.weight_grad_cuda(x, gy)
+    dw_wgrad._launch_args.cache_clear()
+    assert dw_wgrad.launch_count == count

@@ -1,4 +1,4 @@
-"""Checks of the port's two CUDA kernels against their references, shared by
+"""Checks of the port's CUDA kernels against their references, shared by
 the tests and ``chip_smoke.py``. It imports torch and the port only, so that
 it runs where JAX is not installed.
 
@@ -8,6 +8,9 @@ it runs where JAX is not installed.
 * The upsampling filters' weight gradient (``ops/ups_filter.py``): the
   calls of one backward of the default decoder's cascade, as the kernel
   receives them, and the error of a weight gradient against the plain
+  version in float64.
+* The depthwise 7x7 weight gradient (``ops/dw_wgrad.py``): the shapes it
+  is held at, and the error of a weight and bias gradient against the plain
   version in float64.
 """
 
@@ -25,7 +28,7 @@ from coolchic_tpu_torch.models.arm import (
 from coolchic_tpu_torch.models.config import CoolChicConfig
 from coolchic_tpu_torch.models.coolchic import init_coolchic_params
 from coolchic_tpu_torch.models.upsampling import upsampling_apply
-from coolchic_tpu_torch.ops import ups_filter
+from coolchic_tpu_torch.ops import dw_wgrad, ups_filter
 
 # --------------------------------------------------------------------------- #
 # The ARM rate
@@ -162,3 +165,24 @@ def weight_grad_error(got: torch.Tensor, x: torch.Tensor, gy: torch.Tensor, k: i
     want = ups_filter.weight_grad_plain(x, gy, k, transposed, axis)
     scale = ups_filter.weight_grad_plain(x.abs(), gy.abs(), k, transposed, axis)
     return ((got.double() - want).abs() / scale.clamp_min(1e-30)).max().item()
+
+
+# --------------------------------------------------------------------------- #
+# The depthwise 7x7 weight gradient
+# --------------------------------------------------------------------------- #
+# [B, C, H, W] of the latent encoder's 7 levels at the trainer's 256x256,
+# B = 8, at its 64 channels; odd and single-pixel planes; the levels of a
+# 1080p frame (135, 68, 34, 17, 9 rows).
+DW_SHAPES = tuple((8, 64, 256 >> i, 256 >> i) for i in range(7)) + (
+    (8, 64, 17, 30), (8, 64, 9, 9), (8, 64, 1, 1), (1, 64, 135, 240), (1, 64, 68, 120),
+    (1, 64, 34, 60), (1, 64, 17, 30), (1, 64, 9, 15))
+
+
+def dw_grad_error(got: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor,
+                  gy: torch.Tensor) -> float:
+    """The larger, over the two leaves, of the norm of an f32 (dW, db)'s
+    error against the plain version in float64 over that leaf's norm. x and
+    gy may be NCHW or channels-last."""
+    want = dw_wgrad.weight_grad_plain(x.double(), gy.double())
+    return max(((g.double() - w).norm() / w.norm().clamp_min(1e-300)).item()
+               for g, w in zip(got, want))
